@@ -1,0 +1,102 @@
+"""Sorted-boundary segment broadcast: kernel K3 and its plain twin.
+
+Port of ``gstk_tpu/ops/segment_kernel.py::segment_broadcast``. For
+boundaries ``b`` sorted nondecreasing and up to three int32 columns ``d_c``
+
+    out_c[j] = sum_{i: b[i] <= j} d_c[i]   (mod 2**32),   j in [0, length)
+
+which is the composed scatter-then-cumsum of ``binning``: with ``b`` the
+cumsum of per-Gaussian tile counts and ``d = 1`` it gives every intersection
+slot the id of the Gaussian that owns it (sentinel N past the total).
+
+:func:`segment_broadcast` launches the CUDA kernel
+(``csrc/segment_broadcast.cu``) for CUDA tensors and runs
+:func:`segment_broadcast_plain` only for CPU tensors. The TPU version's
+MXU limb matmuls, 128-lane table and chunk prefixes are TPU workarounds and
+are not carried over: the kernel is a binary search per slot.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence
+
+import torch
+
+from gstk_torch import _build
+
+MAX_COLS = 3
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2**32 (two's complement), exactly."""
+    low = torch.bitwise_and(x, 0xFFFFFFFF)
+    return torch.where(low >= 2**31, low - 2**32, low).to(torch.int32)
+
+
+def _check(b: torch.Tensor, ds: Sequence[torch.Tensor], length: int) -> None:
+    if b.ndim != 1 or b.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"b must be a 1-D int tensor, got {b.dtype} {tuple(b.shape)}")
+    if not 1 <= len(ds) <= MAX_COLS:
+        raise ValueError(f"1 to {MAX_COLS} columns, got {len(ds)}")
+    for d in ds:
+        if d.shape != b.shape or d.dtype not in (torch.int32, torch.int64):
+            raise ValueError("every column must be an int tensor shaped like b")
+        if d.device != b.device:
+            raise ValueError("b and the columns must be on one device")
+    if length < 0 or length >= 2**31:
+        raise ValueError(f"length {length} out of range")
+
+
+def segment_broadcast_plain(
+    b: torch.Tensor, ds: Sequence[torch.Tensor], length: int
+) -> List[torch.Tensor]:
+    """The definition as a scatter-add at the clamped boundaries followed by a
+    cumsum, in int64 and wrapped to int32 (exact mod 2**32)."""
+    _check(b, ds, length)
+    b_c = torch.clamp(b.long(), max=length)
+    outs = []
+    for d in ds:
+        buf = torch.zeros(length + 1, dtype=torch.int64, device=b.device)
+        buf.index_add_(0, b_c, d.long())
+        outs.append(_wrap_int32(torch.cumsum(buf[:-1], 0)))
+    return outs
+
+
+def segment_broadcast(
+    b: torch.Tensor, ds: Sequence[torch.Tensor], length: int
+) -> List[torch.Tensor]:
+    """``out_c[j] = sum_{i: b[i] <= j} ds[c][i]`` (mod 2**32) for j in
+    [0, length): kernel K3 on CUDA tensors, the plain twin on CPU tensors.
+
+    ``b`` must be sorted nondecreasing and >= 0; entries past ``length``
+    never contribute. Returns one (length,) int32 tensor per column."""
+    _check(b, ds, length)
+    if b.device.type == "cpu":
+        return segment_broadcast_plain(b, ds, length)
+    if b.device.type != "cuda":
+        raise ValueError(f"segment_broadcast: unsupported device {b.device}")
+    n = b.shape[0]
+    # inclusive prefixes outside the kernel, as the TPU wrapper does
+    prefix = torch.stack(
+        [_wrap_int32(torch.cumsum(d.long(), 0)) for d in ds]
+    ).contiguous()
+    b32 = b.to(torch.int32).contiguous()
+    out = torch.empty((len(ds), length), dtype=torch.int32, device=b.device)
+    fn = _build.kernel_function("gstk_segment_broadcast", _ARGTYPES)
+    with torch.cuda.device(b.device):
+        err = fn(
+            b32.data_ptr(), n, prefix.data_ptr(), len(ds), out.data_ptr(),
+            length, torch.cuda.current_stream(b.device).cuda_stream,
+        )
+    _build.check("segment_broadcast", err)
+    segment_broadcast.launches += 1
+    return list(out.unbind(0))
+
+
+segment_broadcast.launches = 0

@@ -1,0 +1,99 @@
+"""gstk_torch's CUDA kernels against their plain twins on the card.
+
+Marked ``gpu``: every test takes the ``cuda`` fixture, which skips when no
+CUDA device is present (decided at run time, never at import). Run on a
+machine with a card:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+K3 (segment broadcast) must equal its twin exactly; K1 (tile compositing)
+must agree within gstk_tpu's image parity tolerances (rtol 1e-3, atol 1e-4).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gstk_torch.core.cameras import Camera
+from gstk_torch.core.gaussians import scene_from_numpy
+from gstk_torch.models.vanilla import splat_inputs
+from gstk_torch.ops.binning import bin_gaussians
+from gstk_torch.ops.raster_cuda import composite_tiles_fwd, composite_tiles_fwd_plain
+from gstk_torch.ops.segment_kernel import segment_broadcast, segment_broadcast_plain
+
+pytestmark = pytest.mark.gpu
+
+PARITY = dict(rtol=1e-3, atol=1e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("case", ["random", "past_length", "zero_counts"])
+def test_segment_broadcast_kernel_equals_twin(cuda, case):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n, length = 50_000, 1 << 18
+    counts = torch.randint(0, 9, (n,), generator=g, device=cuda)
+    if case == "zero_counts":
+        counts[torch.rand(n, generator=g, device=cuda) < 0.7] = 0
+    b = torch.cumsum(counts, 0)
+    if case == "past_length":
+        b = b * 2
+    ds = [torch.ones(n, dtype=torch.int32, device=cuda)] + [
+        torch.randint(-2**31, 2**31, (n,), generator=g, device=cuda,
+                      dtype=torch.int64).int() for _ in range(2)
+    ]
+    before = segment_broadcast.launches
+    got = segment_broadcast(b.int(), ds, length)
+    assert segment_broadcast.launches == before + 1
+    for x, y in zip(got, segment_broadcast_plain(b.int(), ds, length)):
+        assert torch.equal(x, y)
+
+
+def _scene(rng, n=3000, sh=1):
+    means = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                      rng.uniform(-8, -2, n)], -1)
+    arrays = {
+        "means": means, "scales": rng.uniform(-4.0, -2.0, (n, 3)),
+        "quats": rng.normal(size=(n, 4)), "features_dc": rng.normal(size=(n, 3)),
+        "features_rest": 0.3 * rng.normal(size=(n, (sh + 1) ** 2 - 1, 3)),
+        "opacities": rng.uniform(-1.0, 3.0, (n, 1)), "alive": np.ones(n, bool),
+    }
+    return {k: v.astype(np.float32) if k != "alive" else v for k, v in arrays.items()}
+
+
+@pytest.mark.parametrize("ch", [3, 4])
+def test_composite_kernel_matches_twin(cuda, ch):
+    h, w = 240, 320
+    scene = scene_from_numpy(_scene(np.random.default_rng(0)), cuda)
+    camera = Camera.create(300.0, 300.0, w / 2, h / 2, np.eye(4)[:3], device=cuda)
+    tiles = ((w + 15) // 16, (h + 15) // 16)
+    with torch.no_grad():
+        inp = splat_inputs(scene, camera, h, w, sh_degree=1)
+        isect = bin_gaussians(inp["xys"], inp["depths"], inp["radii"],
+                              inp["num_tiles_hit"], tiles, 16, 1 << 18)
+    assert 0 < int(isect.num_intersects) <= 1 << 18
+    args = (inp["xys"], inp["conics"], inp["opacities"],
+            inp["colors"][:, :ch].contiguous(), isect.gaussian_ids,
+            isect.tile_bins, tiles)
+    before = composite_tiles_fwd.launches
+    acc, final_t = composite_tiles_fwd(*args)
+    assert composite_tiles_fwd.launches == before + 1
+    acc_p, final_t_p, _ = composite_tiles_fwd_plain(*args)
+    torch.testing.assert_close(acc, acc_p, **PARITY)
+    torch.testing.assert_close(final_t, final_t_p, **PARITY)
+    assert float(final_t.mean()) < 0.95  # the scene covers the view
+
+
+def test_composite_kernel_rejects_untaken_shapes(cuda):
+    n = 8
+    f = lambda *s: torch.zeros(s, device=cuda)
+    args = (f(n, 2), f(n, 3), f(n), f(n, 5),
+            torch.zeros(16, dtype=torch.int32, device=cuda),
+            torch.zeros(1, 2, dtype=torch.int32, device=cuda), (1, 1))
+    with pytest.raises(ValueError, match="ch in"):
+        composite_tiles_fwd(*args)
