@@ -1,10 +1,11 @@
-"""Drive gstk_torch's render path on one CUDA card and check it.
+"""Drive gstk_torch's render and train paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases, each printed as it runs; any failure exits non-zero before the last
 line:
-  1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
+  1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off
+     (matmul and cuDNN, so SSIM's conv2d runs in f32);
   2. build: compile the CUDA kernels (``gstk_torch/csrc``) for sm_90a and
      print nvcc's register / shared-memory / spill report;
   3. scene: the render scene of ``bench.py`` (100k Gaussians, capacity
@@ -15,14 +16,27 @@ line:
      exact equality;
   5. kernel K1 (tile compositing) against its plain twin on the scene's
      intersections at ch = 4: rtol 1e-3 / atol 1e-4;
-  6. main path: ``Renderer(checkpoint, device="cuda")`` answers 8 requests
+  6. render path: ``Renderer(checkpoint, device="cuda")`` answers 8 requests
      (the bench camera and 7 pose offsets) with the launch counters reset
      just before; request 0 is compared with the same render through the
      plain twins on the card;
-  7. kernel timings (CUDA events; kernel device time from torch.profiler)
-     beside the plain twins, the library call where one exists and the
-     bound from this run's bytes and operations; one ``kernels`` JSON line.
-The last line is ``{"ok": true, "device": {...}}``.
+  7. K1 and K3 timings at the render shapes;
+  8. train scene: ``bench.py``'s training point (the phase-3 scene,
+     ``isect_capacity`` 3<<18, black background, default optimizer, a
+     uniform gt image from the seed-0 generator), no truncation;
+  9. kernels K2 (compositing backward) and K4 (segment sum) against their
+     plain twins on the scene's intersections and the cotangents of the
+     step's loss (K2 rtol 5e-3 / atol 1e-4 max|g| per column, and again with
+     a random final_t cotangent; K4 rtol 1e-5 / atol 1e-6 of each segment's
+     sum of magnitudes); K2 -> gather -> K4 twice must be bit-identical;
+  10. train path: one step through the kernels, with the launch counters
+     reset just before, against the same step with ``backend="plain"``
+     from the same state (loss, gradients, updates, statistics, with the
+     CPU step test's tolerances); then 2 warm-up and 10 timed steps (host
+     clock, synchronized), one traced step, and K2 / K4 timings;
+then one ``kernels`` JSON line (K1-K4: launches per train step, times,
+bounds), the card's name and power limit, and the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -41,26 +55,46 @@ import torch
 from gstk_torch import _build
 from gstk_torch.core.cameras import Camera
 from gstk_torch.core.gaussians import init_scene, scene_from_numpy, scene_to_numpy
-from gstk_torch.models.vanilla import VanillaConfig, splat_inputs
-from gstk_torch.ops.binning import bin_gaussians
+from gstk_torch.models.vanilla import VanillaConfig, rgb_loss, splat_inputs
+from gstk_torch.ops.binning import bin_gaussians, expansion_positions
 from gstk_torch.ops.projection import tight_extents, tile_bbox
-from gstk_torch.ops.raster_cuda import composite_tiles_fwd, composite_tiles_fwd_plain
-from gstk_torch.ops.rasterize import RasterizeConfig
-from gstk_torch.ops.segment_kernel import segment_broadcast, segment_broadcast_plain
+from gstk_torch.ops.raster_cuda import (
+    composite_tiles_bwd,
+    composite_tiles_bwd_plain,
+    composite_tiles_fwd,
+    composite_tiles_fwd_plain,
+)
+from gstk_torch.ops.rasterize import RasterizeConfig, _tiles_to_image
+from gstk_torch.ops.segment_kernel import (
+    segment_broadcast,
+    segment_broadcast_plain,
+    segment_sum_sorted,
+    segment_sum_sorted_plain,
+)
 from gstk_torch.render.renderer import Renderer
-from gstk_torch.train.checkpoint import save_scene
+from gstk_torch.train.checkpoint import save_scene, train_state_to_numpy
+from gstk_torch.train.optim import OptimizerConfig
+from gstk_torch.train.step import init_train_state, make_train_step
 
 SEED = 0
 N_POINTS, CAPACITY, SH_DEGREE = 100_000, 104 * 1024, 3
 H = W = 800
 FOCAL = 1111.0
 REQUESTS = 8
+TRAIN_ISECT = 3 << 18  # bench.py's training isect_capacity
+TRAIN_STEPS = 10  # timed, after 2 warm-ups
 DEVICE = "cuda"
 PARITY = dict(rtol=1e-3, atol=1e-4)  # gstk_tpu's image parity tolerances
+RTOL_GRAD = 5e-3  # gstk_tpu's gradient parity tolerance
+MAX_OUTSIDE = 0.005  # share of a group allowed outside it (cutoff flips)
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 K1_FLOP_PER_PAIR = 21  # ~20 FLOP + 1 exp per (pixel, entry) pair evaluated
+# K2 (csrc/composite_bwd.cu): the recompute per pair evaluated, and the
+# gradient per pair kept, at ch channels
+K2_FLOP_PER_PAIR = 15
+K2_FLOP_PER_KEPT = lambda ch: 37 + 4 * ch
 
 
 def phase(name):
@@ -107,14 +141,18 @@ def pose(i: int) -> np.ndarray:
     return c2w
 
 
-def assert_close(name, got, want, **tol):
-    ok = torch.isclose(got, want, **tol)
-    if not bool(ok.all()):
-        bad = int((~ok).sum())
+def assert_close(name, got, want, rtol, atol, max_outside=0.0):
+    """|got - want| <= atol + rtol |want| for all but a ``max_outside``
+    share of the values; ``atol`` may be a tensor that broadcasts (a
+    tolerance per column or row). Returns the number outside."""
+    ok = (got - want).abs() <= atol + rtol * want.abs()
+    bad = int((~ok).sum())
+    if bad > max_outside * ok.numel():
         raise AssertionError(
-            f"{name}: {bad} of {ok.numel()} values outside {tol}, max abs "
-            f"err {float((got - want).abs().max())}"
+            f"{name}: {bad} of {ok.numel()} values outside rtol {rtol}, max "
+            f"abs err {float((got - want).abs().max())}"
         )
+    return bad
 
 
 def event_ms(fn, iters: int) -> float:
@@ -147,29 +185,6 @@ def kernel_device_ms(fn, kernel_name: str, iters: int):
         if kernel_name in e.key
     )
     return us / 1e3 / iters if us > 0 else None
-
-
-def trace_request(renderer, request_args, top: int = 8) -> None:
-    """One request under torch.profiler (a separate, traced run): wall
-    time, device busy time (the sum over device-side events, kernels and
-    copies; one stream, so they do not overlap), the device's idle share,
-    and the device events that take most time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        renderer.get_output_from_pose(*request_args)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # CPU ops also report the device time of what they launched: count
-    # only the device-side events, or every kernel is counted twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"traced request: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-          f"device idle share {1 - busy_ms / wall_ms:.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x  {e.key[:90]}")
 
 
 def main() -> int:
@@ -265,7 +280,7 @@ def run(ckpt_dir: str) -> int:
     print(f"K1 max abs err {k1_err:.3g} (acc {tuple(acc.shape)}, final_t "
           f"{tuple(final_t.shape)}); {pairs} (pixel, entry) pairs evaluated")
 
-    phase("6 main path: Renderer, 8 requests")
+    phase("6 render path: Renderer, 8 requests")
     renderer = Renderer(ckpt_dir, device=dev)
     assert renderer.raster_config.isect_capacity == raster.isect_capacity
     args = lambda i: (pose(i), FOCAL, FOCAL, W / 2, H / 2, H, W)
@@ -308,9 +323,9 @@ def run(ckpt_dir: str) -> int:
                      torch.from_numpy(ref[k]), **PARITY)
         main_err[k] = float(np.abs(outs[0][k] - ref[k]).max())
     print(f"request 0 vs plain twins on the card: max abs err {main_err}")
-    trace_request(renderer, args(0))
+    trace("request", lambda: renderer.get_output_from_pose(*args(0)))
 
-    phase("7 kernel timings")
+    phase("7 K1 and K3 timings (render shapes)")
     iters = 20
     length = raster.isect_capacity
     j = torch.arange(length, dtype=torch.int32, device=dev)
@@ -337,6 +352,153 @@ def run(ckpt_dir: str) -> int:
     k1_bytes = (n_isect * (4 + 4 * (6 + ch)) + num_tiles * 8
                 + num_tiles * 256 * (ch + 1) * 4)
     k1_ops = pairs * K1_FLOP_PER_PAIR
+    print(f"K3 {k3}\nK1 {k1}")
+    del renderer, plain, outs
+
+    phase("8 train scene")
+    model_cfg = VanillaConfig(sh_degree=SH_DEGREE, background_color="black")
+    train_raster = RasterizeConfig(isect_capacity=TRAIN_ISECT)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gt = torch.rand((H, W, 3), generator=gen, device=dev)
+    scene = bench_scene(dev)
+    with torch.no_grad():
+        t_in = splat_inputs(scene, camera, H, W, sh_degree=SH_DEGREE,
+                            config=model_cfg)
+        ext = tight_extents(t_in["conics"], t_in["opacities"],
+                            t_in["radii"].float())
+        tmin, tmax = tile_bbox(t_in["xys"], ext, tiles, 16)
+        area = (tmax[:, 0] - tmin[:, 0]) * (tmax[:, 1] - tmin[:, 1])
+        t_counts = torch.where((ext[:, 0] > 0) & (ext[:, 1] > 0), area, 0).int()
+        t_isect = bin_gaussians(t_in["xys"], t_in["depths"], ext, t_counts,
+                                tiles, 16, TRAIN_ISECT)
+    t_n_isect = int(t_isect.num_intersects)
+    print(f"train scene: {t_n_isect} intersections of capacity {TRAIN_ISECT}")
+    assert 0 < t_n_isect <= TRAIN_ISECT, "training intersections truncated"
+
+    phase("9 K2 composite_tiles_bwd and K4 segment_sum_sorted vs plain twins")
+    fwd_args = (t_in["xys"], t_in["conics"], t_in["opacities"], t_in["colors"],
+                t_isect.gaussian_ids, t_isect.tile_bins, tiles)
+    acc, final_t = composite_tiles_fwd(*fwd_args)
+    _, _, t_visited = composite_tiles_fwd_plain(*fwd_args)
+    g_acc, g_final_t = step_cotangents(acc, final_t, tiles, gt, scene, model_cfg)
+    bwd_args = fwd_args[:6] + (acc, final_t, g_acc, g_final_t, tiles)
+    g_t_random = torch.randn(final_t.shape, generator=gen, device=dev)
+    k2_err = 0.0
+    # With a random final_t cotangent, an entry at T ~ 1e-4 carries a large
+    # gradient, and where the kernel's sequential T and the twin's cumprod
+    # round to opposite sides of the 1e-4 stop, one of them has that entry
+    # and the other not: a few in a million may fall outside.
+    for label, args, max_outside in (
+        ("the step's cotangents", bwd_args, 0.0),
+        ("a random final_t cotangent", bwd_args[:9] + (g_t_random, tiles), 1e-5),
+    ):
+        gout = composite_tiles_bwd(*args)
+        gout_p, t_kept = composite_tiles_bwd_plain(*args)
+        torch.cuda.synchronize()
+        scale = gout_p.abs().amax(0, keepdim=True)
+        bad = assert_close(f"K2 gout ({label})", gout, gout_p, rtol=RTOL_GRAD,
+                           atol=1e-4 * scale, max_outside=max_outside)
+        err = float((gout - gout_p).abs().max())
+        print(f"K2 with {label}: max abs err {err:.3g}, {bad} values outside "
+              f"the tolerance, column max {[round(float(x), 6) for x in scale[0]]}")
+        if max_outside == 0.0:
+            k2_err = err
+    gout = composite_tiles_bwd(*bwd_args)
+    positions = expansion_positions(t_isect)
+    hi = torch.clamp(torch.cumsum(t_counts.long(), 0), max=TRAIN_ISECT)
+    g_et = gout.index_select(0, positions).t().contiguous()
+    sums = segment_sum_sorted(g_et, hi)
+    sums_p = segment_sum_sorted_plain(g_et, hi)
+    torch.cuda.synchronize()
+    # f32 summation error grows with the segment's sum of magnitudes
+    mag = segment_sum_sorted_plain(g_et.abs(), hi)
+    assert_close("K4 sums", sums, sums_p, rtol=1e-5, atol=1e-6 * mag)
+    k4_err = float((sums - sums_p).abs().max())
+
+    def backward_once():
+        g = composite_tiles_bwd(*bwd_args)
+        return segment_sum_sorted(g.index_select(0, positions).t().contiguous(), hi)
+
+    first, second = backward_once(), backward_once()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second), "K2 -> gather -> K4 is not deterministic"
+    t_pairs, t_kept_pairs = int(t_visited.sum()), int(t_kept.sum())
+    print(f"K2 max abs err {k2_err:.3g} (gout {tuple(gout.shape)}); K4 max abs "
+          f"err {k4_err:.3g} (sums {tuple(sums.shape)}); backward bit-identical "
+          f"over two runs; {t_pairs} (pixel, entry) pairs evaluated, "
+          f"{t_kept_pairs} kept")
+
+    phase("10 train path: one step through the kernels vs backend='plain'")
+    step_fn = make_train_step(model_cfg, train_raster, OptimizerConfig(), H, W,
+                              sh_degree=SH_DEGREE)
+    plain_fn = make_train_step(
+        model_cfg, RasterizeConfig(isect_capacity=TRAIN_ISECT, backend="plain"),
+        OptimizerConfig(), H, W, sh_degree=SH_DEGREE,
+    )
+    state = init_train_state(bench_scene(dev))
+    state_p = init_train_state(bench_scene(dev))
+    before = train_state_to_numpy(state)
+    torch.cuda.synchronize()
+    counters = (composite_tiles_fwd, composite_tiles_bwd, segment_broadcast,
+                segment_sum_sorted)
+    for f in counters:
+        f.launches = 0
+    state, metrics = step_fn(state, camera, gt)
+    torch.cuda.synchronize()
+    step_launches = {f.__name__: f.launches for f in counters}
+    state_p, metrics_p = plain_fn(state_p, camera, gt)
+    torch.cuda.synchronize()
+    print(f"launches in one train step: {step_launches}")
+    for name, n in step_launches.items():
+        assert n >= 1, f"{name} not launched by the train step"
+    compare_steps(metrics, metrics_p, before, train_state_to_numpy(state),
+                  train_state_to_numpy(state_p), OptimizerConfig())
+
+    ms_steps = []
+    for i in range(2 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, camera, gt)
+        torch.cuda.synchronize()
+        ms_steps.append((time.perf_counter() - t0) * 1e3)
+    ms_steps = ms_steps[2:]
+    assert all(math.isfinite(float(metrics[k])) for k in ("loss", "psnr"))
+    print(f"train step ms: median {statistics.median(ms_steps):.3f}, min "
+          f"{min(ms_steps):.3f} (host clock, synchronized; {TRAIN_STEPS} steps "
+          f"after 2 warm-ups); loss {float(metrics['loss']):.5f}, psnr "
+          f"{float(metrics['psnr']):.3f}, num_intersects "
+          f"{int(metrics['num_intersects'])}")
+    trace("train step", lambda: step_fn(state, camera, gt))
+
+    k2 = {
+        "ms": kernel_device_ms(lambda: composite_tiles_bwd(*bwd_args),
+                               "composite_bwd_kernel", iters),
+        "wrapper_ms": event_ms(lambda: composite_tiles_bwd(*bwd_args), iters),
+        "plain_ms": event_ms(lambda: composite_tiles_bwd_plain(*bwd_args), 3),
+        "library_ms": None,  # no single PyTorch call composites backward
+    }
+    rows = g_et.shape[0]
+    n_seg = hi.shape[0]
+    covered = int(hi[-1])
+    lengths = torch.diff(hi, prepend=hi.new_zeros(1))
+    lib_vals = g_et[:, :covered].contiguous()
+    lib_lengths = lengths[None].expand(rows, n_seg).contiguous()
+    k4 = {
+        "ms": kernel_device_ms(lambda: segment_sum_sorted(g_et, hi),
+                               "segment_sum_kernel", iters),
+        "wrapper_ms": event_ms(lambda: segment_sum_sorted(g_et, hi), iters),
+        "plain_ms": event_ms(lambda: segment_sum_sorted_plain(g_et, hi), iters),
+        "library_ms": event_ms(lambda: torch.segment_reduce(
+            lib_vals, "sum", lengths=lib_lengths, axis=1), iters),
+    }
+    lib = torch.segment_reduce(lib_vals, "sum", lengths=lib_lengths, axis=1)
+    assert_close("segment_reduce vs K4", lib, sums, rtol=1e-5, atol=1e-6 * mag)
+    print(f"K2 {k2}\nK4 {k4}")
+    k2_bytes = (TRAIN_ISECT * (6 + ch) * 4 + t_n_isect * (4 + 4 * (6 + ch))
+                + num_tiles * 256 * (2 * ch + 2) * 4 + num_tiles * 8)
+    k2_ops = t_pairs * K2_FLOP_PER_PAIR + t_kept_pairs * K2_FLOP_PER_KEPT(ch)
+    k4_bytes = rows * covered * 4 + n_seg * 4 + rows * n_seg * 4
+    k4_ops = rows * covered
+
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
         ("segment_broadcast", k3, k3_bytes, k3_ops,
@@ -345,12 +507,18 @@ def run(ckpt_dir: str) -> int:
         ("composite_tiles_fwd", k1, k1_bytes, k1_ops,
          "gstk_torch/csrc/composite_fwd.cu",
          "gstk_tpu/ops/raster_pallas.py:409", k1_err),
+        ("composite_tiles_bwd", k2, k2_bytes, k2_ops,
+         "gstk_torch/csrc/composite_bwd.cu",
+         "gstk_tpu/ops/raster_pallas.py:661", k2_err),
+        ("segment_sum_sorted", k4, k4_bytes, k4_ops,
+         "gstk_torch/csrc/segment_sum.cu",
+         "gstk_tpu/ops/segment_kernel.py:227", k4_err),
     ):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_FLOP_PER_S * 1e3
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name],
+            "launches": step_launches[name],
             "max_abs_err": err, "max_err": err,
             "ms": t["ms"] if t["ms"] is not None else t["wrapper_ms"],
             "ms_source": "profiler" if t["ms"] is not None else "events",
@@ -359,14 +527,102 @@ def run(ckpt_dir: str) -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "operations": ops,
             "library_ms": t["library_ms"],
-        })
-        print(f"{name}: {kernels[-1]}")
-    print(json.dumps({"kernels": kernels, "request_ms_median": statistics.median(ms),
-                      "request_ms_min": min(ms), "power": smi}))
+        }
+        if name in launches:
+            entry["launches_render"] = launches[name]
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels,
+                      "request_ms_median": statistics.median(ms),
+                      "request_ms_min": min(ms),
+                      "train_step_ms_median": statistics.median(ms_steps),
+                      "train_step_ms_min": min(ms_steps), "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
+
+
+def step_cotangents(acc, final_t, tiles, gt, scene, model_cfg):
+    """The cotangents of the train step's loss at K1's outputs: the rest of
+    ``render_scene`` (black background, ``min(rgb, 1)``) and ``rgb_loss``
+    on top of ``acc`` and ``final_t``, differentiated by autograd."""
+    acc = acc.detach().requires_grad_()
+    final_t = final_t.detach().requires_grad_()
+    img = _tiles_to_image(acc, tiles, 16, H, W)[..., :3]
+    rgb = torch.minimum(img, torch.ones_like(img))
+    loss = sum(rgb_loss(rgb, gt, scene, model_cfg).values())
+    # final_t reaches this loss only through the black background: its
+    # cotangent is zero (phase 9 also checks a random one)
+    g_acc, _ = torch.autograd.grad(loss, [acc, final_t], allow_unused=True)
+    return g_acc, torch.zeros_like(final_t)
+
+
+def compare_steps(metrics, metrics_p, before, got, want, optim_cfg):
+    """The kernel step against the plain step from the same state, with the
+    CPU step test's tolerances: loss rtol 1e-4; first moments (0.1 g) and
+    sqrt of second moments at the gradient tolerance; parameter updates at
+    rtol 5e-3 where |g| > 1e-3 max|g| and within 2 lr elsewhere; at most
+    0.5% of a group outside."""
+    for k in ("loss", "main_loss", "psnr"):
+        a, b = float(metrics[k]), float(metrics_p[k])
+        assert math.isclose(a, b, rel_tol=1e-4), f"{k}: {a} vs plain {b}"
+    worst = {}
+
+    def outside(name, x, y, rtol, atol):
+        bad = ~np.isclose(x, y, rtol=rtol, atol=atol)
+        worst[name] = int(bad.sum())
+        assert bad.mean() <= MAX_OUTSIDE, (
+            f"train step {name}: {int(bad.sum())} of {bad.size} outside"
+        )
+
+    for g in ("means", "scales", "quats", "features_dc", "features_rest",
+              "opacities"):
+        mu_key, nu_key = f".adam/.mu/['{g}']", f".adam/.nu/['{g}']"
+        mu_p = want[mu_key]
+        scale = 1e-4 * max(float(np.abs(mu_p).max()), 1e-30)
+        outside(f"mu {g}", got[mu_key], mu_p, RTOL_GRAD, scale)
+        sq_p = np.sqrt(want[nu_key])
+        outside(f"sqrt nu {g}", np.sqrt(got[nu_key]), sq_p, RTOL_GRAD,
+                1e-4 * max(float(sq_p.max()), 1e-30))
+        d_k = got[f".scene/.{g}"] - before[f".scene/.{g}"]
+        d_p = want[f".scene/.{g}"] - before[f".scene/.{g}"]
+        strong = np.abs(mu_p) > 1e-3 * np.abs(mu_p).max()
+        lr = float(optim_cfg.schedule_for(g)(torch.tensor(0)))
+        bad = np.where(strong, ~np.isclose(d_k, d_p, rtol=RTOL_GRAD, atol=0.0),
+                       np.abs(d_k - d_p) > 2.0 * lr + 1e-7)
+        worst[f"update {g}"] = int(bad.sum())
+        assert bad.mean() <= MAX_OUTSIDE, f"train step update {g}"
+    norm_p = want[".refine/.xys_grad_norm"]
+    outside("xys_grad_norm", got[".refine/.xys_grad_norm"], norm_p, RTOL_GRAD,
+            1e-4 * float(norm_p.max()))
+    for k in ("vis_counts", "max_2dsize"):
+        outside(k, got[f".refine/.{k}"], want[f".refine/.{k}"], 1e-6, 0.0)
+    print(f"kernel step vs plain step: loss {float(metrics['loss']):.6f} vs "
+          f"{float(metrics_p['loss']):.6f}; entries outside tolerance {worst}")
+
+
+def trace(label, fn, top: int = 8) -> None:
+    """One call of ``fn`` under torch.profiler (a separate, traced run): wall
+    time, device busy time (the sum over device-side events, kernels and
+    copies; one stream, so they do not overlap), the device's idle share,
+    and the device events that take most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # CPU ops also report the device time of what they launched: count
+    # only the device-side events, or every kernel is counted twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"traced {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"device idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{sum(e.count for e in events)} device events")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -64,11 +64,12 @@ def scene_from_numpy(arrays: Dict[str, np.ndarray], device: DeviceLike = None
     """Scene from numpy arrays keyed by field name (``means`` ... ``alive``),
     e.g. a gstk_tpu scene's fields or a checkpoint's ``.scene/.*`` entries."""
     device = resolve_device(device)
+    # copies: training updates the parameters in place
     t = {
-        k: torch.as_tensor(np.asarray(arrays[k], np.float32), device=device)
+        k: torch.tensor(np.asarray(arrays[k], np.float32), device=device)
         for k in PARAM_NAMES
     }
-    alive = torch.as_tensor(np.asarray(arrays["alive"], bool), device=device)
+    alive = torch.tensor(np.asarray(arrays["alive"], bool), device=device)
     return GaussianScene(**t, alive=alive)
 
 
@@ -101,8 +102,8 @@ def init_scene(
     init, padded to ``capacity``: kNN mean-distance log scales, Shoemake
     random quats, RGB->SH DC features, logit(init_opacity) opacities.
 
-    Random numbers come from ``generator`` (on its own device); they differ
-    from gstk_tpu's ``jax.random`` draws for the same seed."""
+    Random numbers come from ``generator`` (on its own device); for the
+    same seed they differ from the ``jax.random`` draws of gstk_tpu."""
     device = resolve_device(device)
     gen_dev = generator.device
     if seed_points is not None and seed_points[0].shape[0] > 0:

@@ -15,9 +15,10 @@
 // range is walked in batches of 256 entries; each batch is gathered
 // cooperatively into shared memory straight from the per-Gaussian arrays
 // (gid -> xy, conic, opacity, CH colors), then every pixel composites the
-// batch sequentially in f32. The tile exits early once every pixel is done
-// (__syncthreads_count). Entries past `end` and sentinel ids (>= N) are
-// never read.
+// batch sequentially in f32. Every keep / skip / stop decision comes from
+// composite_common.cuh, which the backward kernel K2 shares. The tile exits
+// early once every pixel is done (__syncthreads_count). Entries past `end`
+// and sentinel ids (>= N) are never read.
 //
 // Bound: per intersection the kernel reads the gid and 4 (6 + CH) B of
 // attributes (40 B at CH = 4), and writes T * 256 * (CH + 1) * 4 B; the work
@@ -29,24 +30,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kBlock = 16;
-constexpr int kPixels = kBlock * kBlock;  // threads per CTA = batch length
-constexpr float kAlphaClamp = 0.999f;
-constexpr float kAlphaCutoff = 1.0f / 255.0f;
-constexpr float kTCutoff = 1e-4f;
-
-// sigma rounded op by op, in the plain twin's order, with no FMA
-// contraction: an alpha within rounding of the 1/255 cutoff then falls the
-// same way in the kernel and in the twin.
-__device__ __forceinline__ float sigma_of(float a, float b, float c, float dx,
-                                          float dy) {
-  const float qa = __fmul_rn(__fmul_rn(a, dx), dx);
-  const float qc = __fmul_rn(__fmul_rn(c, dy), dy);
-  const float qb = __fmul_rn(__fmul_rn(b, dx), dy);
-  return __fadd_rn(__fmul_rn(0.5f, __fadd_rn(qa, qc)), qb);
-}
+using gstk::kBlock;
+using gstk::kPixels;
 
 template <int CH>
 __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
@@ -101,15 +90,16 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
     __syncthreads();
     const int count = min(kPixels, end - b0);
     for (int k = 0; k < count && !done; ++k) {
+      // gstk::decide's steps, inline: s_op is read only past sigma's test
       const float dx = s_xy[k][0] - px;
       const float dy = s_xy[k][1] - py;
       const float sigma =
-          sigma_of(s_conic[k][0], s_conic[k][1], s_conic[k][2], dx, dy);
+          gstk::sigma_of(s_conic[k][0], s_conic[k][1], s_conic[k][2], dx, dy);
       if (sigma < 0.0f) continue;
-      const float alpha = fminf(kAlphaClamp, s_op[k] * expf(-sigma));
-      if (alpha < kAlphaCutoff) continue;
-      const float next_t = t * (1.0f - alpha);
-      if (next_t <= kTCutoff) {
+      const float alpha = gstk::clamped_alpha(s_op[k] * expf(-sigma));
+      if (alpha < gstk::kAlphaCutoff) continue;
+      float next_t;
+      if (gstk::stops(t, alpha, next_t)) {
         done = true;
         break;
       }

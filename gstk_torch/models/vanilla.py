@@ -1,16 +1,21 @@
-"""Vanilla 3D Gaussian Splatting model: the render function (port of the
-render half of ``gstk_tpu/models/vanilla.py``).
+"""Vanilla 3D Gaussian Splatting model: render and loss (port of
+``gstk_tpu/models/vanilla.py``).
 
 :func:`render_scene` runs projection and SH (:func:`splat_inputs`) and one
-fused rasterization pass with RGB plus depth as a 4th channel. The loss and
-the training-only options (``xys_offset``, ``crop_box``) come with the
-training port.
+fused rasterization pass with RGB plus depth as a 4th channel; a zero
+``xys_offset`` gives the screen-space positional gradient that densification
+reads. :func:`rgb_loss` is (1 - lambda) L1 + lambda (1 - SSIM) with an
+optional mask and scale regularizer. Wherever gstk_tpu clips a
+differentiated value with ``jnp.minimum``/``jnp.maximum``, the port uses
+``torch.minimum``/``torch.maximum``, whose gradient splits at a tie as
+JAX's does (``torch.clamp`` would pass all of it). The crop box is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -19,6 +24,7 @@ from gstk_torch.core.gaussians import GaussianScene
 from gstk_torch.ops.projection import project_gaussians
 from gstk_torch.ops.rasterize import RasterizeConfig, rasterize
 from gstk_torch.ops.sh import spherical_harmonics
+from gstk_torch.utils import losses
 from gstk_torch.utils.math import normalize
 
 
@@ -62,6 +68,11 @@ def active_sh_degree(cfg: VanillaConfig, step) -> torch.Tensor:
     )
 
 
+def downscale_factor(cfg: VanillaConfig, step: int) -> int:
+    """Coarse-to-fine image downscale factor at ``step`` (host-side)."""
+    return 2 ** max(cfg.num_downscales - int(step) // cfg.resolution_schedule, 0)
+
+
 def splat_inputs(
     scene: GaussianScene,
     camera: Camera,
@@ -95,7 +106,8 @@ def splat_inputs(
         )
         viewdirs = normalize(means.detach() - camera.position.detach()[None, :])
         rgbs = spherical_harmonics(int(sh_degree), viewdirs, coeffs)
-        rgbs = torch.clamp(rgbs + 0.5, min=0.0)
+        rgbs = rgbs + 0.5
+        rgbs = torch.maximum(rgbs, torch.zeros_like(rgbs))
     else:
         rgbs = torch.sigmoid(scene.features_dc)
 
@@ -126,27 +138,34 @@ def render_scene(
     background: torch.Tensor,
     config: VanillaConfig = VanillaConfig(),
     raster_config: RasterizeConfig = RasterizeConfig(),
+    xys_offset: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render one camera view: rgb (H,W,3), depth (H,W), alpha (H,W),
     background, radii, visible, num_intersects.
 
-    ``sh_degree`` is the active degree. Forward-only: call under
-    ``torch.no_grad()`` (the scene's parameters require grad)."""
+    ``sh_degree`` is the active degree. ``xys_offset`` is an optional (C, 2)
+    zero tensor added to the projected centers; its gradient is the
+    screen-space positional gradient that densification reads."""
     inputs = splat_inputs(
         scene, camera, img_height, img_width, sh_degree=sh_degree,
         config=config, block_width=raster_config.block_width,
     )
+    if xys_offset is not None:
+        inputs["xys"] = inputs["xys"] + xys_offset
     bg4 = torch.cat([background, background.new_zeros(1)])  # depth bg = 0
     img4, alpha, raster_info = rasterize(
         **inputs, img_height=img_height, img_width=img_width,
         background=bg4, config=raster_config, return_info=True,
     )
-    rgb = torch.clamp(img4[..., :3], max=1.0)
+    rgb = img4[..., :3]
+    rgb = torch.minimum(rgb, torch.ones_like(rgb))
     depth_acc = img4[..., 3]
     # depth / alpha where alpha > 0, else the max accumulated depth
     fill = depth_acc.max().detach()
     depth = torch.where(
-        alpha > 0, depth_acc / torch.clamp(alpha, min=1e-10), fill
+        alpha > 0,
+        depth_acc / torch.maximum(alpha, torch.full_like(alpha, 1e-10)),
+        fill,
     )
     return {
         "rgb": rgb,
@@ -165,3 +184,45 @@ def composite_gt_with_background(image: torch.Tensor, background: torch.Tensor):
         a = image[..., 3:4]
         return a * image[..., :3] + (1.0 - a) * background
     return image
+
+
+def rgb_loss(
+    pred: torch.Tensor,
+    gt: torch.Tensor,
+    scene: GaussianScene,
+    config: VanillaConfig,
+    mask: Optional[torch.Tensor] = None,
+    apply_scale_reg: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """(1-lambda) L1 + lambda (1-SSIM), and the scale regularizer
+    (``scale_reg``, zero unless ``config.use_scale_regularization`` and
+    ``apply_scale_reg``)."""
+    if mask is not None:
+        m = mask.to(pred.dtype)
+        if m.ndim == 2:
+            m = m[..., None]
+        pred = pred * m
+        gt = gt * m
+    ll1 = losses.l1(pred, gt)
+    simloss = 1.0 - losses.ssim(gt, pred)
+    out = {
+        "main_loss": (1.0 - config.ssim_lambda) * ll1
+        + config.ssim_lambda * simloss,
+    }
+    if config.use_scale_regularization and apply_scale_reg:
+        scale_exp = torch.exp(scene.scales)
+        # amax/amin split the gradient among tied axes, as jnp.max/min do
+        lo = torch.amin(scale_exp, dim=-1)
+        ratio = torch.amax(scale_exp, dim=-1) / torch.maximum(
+            lo, torch.full_like(lo, 1e-12)
+        )
+        reg = torch.maximum(
+            ratio, torch.full_like(ratio, config.max_gauss_ratio)
+        ) - config.max_gauss_ratio
+        # only alive lanes contribute, normalized by the alive count
+        reg = torch.where(scene.alive, reg, 0.0)
+        denom = torch.clamp(scene.num_alive.to(reg.dtype), min=1.0)
+        out["scale_reg"] = 0.1 * reg.sum() / denom
+    else:
+        out["scale_reg"] = pred.new_zeros(())
+    return out

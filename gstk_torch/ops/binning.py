@@ -1,5 +1,5 @@
 """Tile binning: expand Gaussians to per-tile intersections and depth-sort
-(port of ``gstk_tpu/ops/binning.py``, forward-only).
+(port of ``gstk_tpu/ops/binning.py``).
 
 Static capacity, as in gstk_tpu, so the output is identical to it:
 
@@ -15,6 +15,10 @@ Static capacity, as in gstk_tpu, so the output is identical to it:
      float32 bit patterns sort like the floats, so this equals gstk_tpu's
      (tile, depth) sort; ties keep the Gaussian-major slot order.
   4. Tile ranges come from one ``searchsorted``.
+  5. For the backward pass, the sort permutation is kept as
+     ``expansion_ids`` (each sorted entry's slot in the Gaussian-major
+     expansion), and :func:`expansion_positions` inverts it with one
+     scatter. ``need_expansion=False`` (render-only) leaves them out.
 
 If the true count exceeds ``capacity`` the tail of the Gaussian-major
 expansion is dropped and the last tile ends at ``min(total, capacity)``;
@@ -26,7 +30,7 @@ gathers; here the per-slot values are plain gathers by Gaussian id.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,6 +48,9 @@ class Intersections(NamedTuple):
     tile_ids: torch.Tensor  # (capacity,) int32 sorted; sentinel = num_tiles
     tile_bins: torch.Tensor  # (num_tiles, 2) int32 [start, end)
     num_intersects: torch.Tensor  # () int32 true count (may exceed capacity)
+    # (capacity,) int32 expansion-order slot of each sorted entry; None when
+    # binned with need_expansion=False
+    expansion_ids: Optional[torch.Tensor] = None
 
 
 def bin_gaussians(
@@ -55,6 +62,7 @@ def bin_gaussians(
     block_width: int,
     capacity: int,
     segment_backend: str = "auto",
+    need_expansion: bool = True,
 ) -> Intersections:
     """Build the sorted per-tile intersection list with a static capacity.
 
@@ -63,7 +71,8 @@ def bin_gaussians(
     extents; ``num_tiles_hit`` must equal the resulting bbox areas.
     tile_bounds: (tiles_x, tiles_y). segment_backend: "auto" (kernel K3 for
     CUDA tensors, its plain twin for CPU tensors) or "plain" (the twin on
-    any device)."""
+    any device). need_expansion=False leaves ``expansion_ids`` out (None),
+    for callers that never differentiate."""
     if segment_backend not in ("auto", "plain"):
         raise ValueError(f"segment_backend {segment_backend!r}")
     device = xys.device
@@ -117,4 +126,17 @@ def bin_gaussians(
         tile_ids=sorted_tile,
         tile_bins=torch.stack([starts, ends], dim=-1),
         num_intersects=total.to(torch.int32),
+        expansion_ids=perm.to(torch.int32) if need_expansion else None,
     )
+
+
+def expansion_positions(isect: Intersections) -> torch.Tensor:
+    """Expansion-order -> sorted-position permutation, the inverse of the
+    binning sort: ``out[e]`` is where expansion slot e landed in the sorted
+    list. One scatter of ``arange``, not a second sort."""
+    if isect.expansion_ids is None:
+        raise ValueError("binned with need_expansion=False: no expansion_ids")
+    ids = isect.expansion_ids.long()
+    pos = torch.empty_like(isect.expansion_ids)
+    pos[ids] = torch.arange(ids.shape[0], dtype=pos.dtype, device=pos.device)
+    return pos

@@ -12,7 +12,10 @@ Elementwise over N Gaussians, so plain tensor code with component-wise
     homogeneous epsilon and the -0.5 pixel-center offset,
   * near-plane cull at z < clip_thresh (0.01) and det != 0 validity,
   * ``num_tiles_hit`` = clamped tile-bbox area.
-Divisions are guarded so masked-out lanes carry no NaNs.
+Divisions are guarded so masked-out lanes carry no NaNs. Gradients flow
+through autograd; clipping on the differentiated path uses
+``torch.minimum``/``torch.maximum``, whose gradient splits at a tie as
+gstk_tpu's ``jnp.clip``/``jnp.maximum`` does.
 """
 
 from __future__ import annotations
@@ -75,10 +78,12 @@ def _project_cov3d_ewa(means3d, cov, viewmat, fx, fy, tan_fovx, tan_fovy):
 
     tz_safe = torch.where(torch.abs(tz) < 1e-6, 1e-6, tz)
     rz = 1.0 / tz_safe
-    lim_x = 1.3 * tan_fovx
-    lim_y = 1.3 * tan_fovy
-    tx = tz * torch.clamp(t0 * rz, -lim_x, lim_x)
-    ty = tz * torch.clamp(t1 * rz, -lim_y, lim_y)
+    lim_x = torch.as_tensor(1.3 * tan_fovx, dtype=tz.dtype, device=tz.device)
+    lim_y = torch.as_tensor(1.3 * tan_fovy, dtype=tz.dtype, device=tz.device)
+    # minimum/maximum, not clamp: at a tie they split the gradient in half,
+    # as gstk_tpu's jnp.clip does (clamp passes all of it)
+    tx = tz * torch.minimum(torch.maximum(t0 * rz, -lim_x), lim_x)
+    ty = tz * torch.minimum(torch.maximum(t1 * rz, -lim_y), lim_y)
 
     rz2 = rz * rz
     # J = [[fx/z, 0, -fx x/z^2], [0, fy/z, -fy y/z^2]]; T = J @ W (N, 2, 3)
@@ -110,7 +115,8 @@ def _project_cov3d_ewa(means3d, cov, viewmat, fx, fy, tan_fovx, tan_fovy):
     c = c + 0.3
     det_blur = a * c - b * b
     det_blur_safe = torch.where(torch.abs(det_blur) < 1e-12, 1e-12, det_blur)
-    compensation = torch.sqrt(torch.clamp(det_orig / det_blur_safe, min=0.0))
+    ratio = det_orig / det_blur_safe
+    compensation = torch.sqrt(torch.maximum(ratio, torch.zeros_like(ratio)))
     return torch.stack([a, b, c], dim=-1), compensation, t
 
 

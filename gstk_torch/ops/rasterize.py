@@ -1,16 +1,20 @@
-"""Tile rasterization, forward only (port of ``gstk_tpu/ops/rasterize.py``).
+"""Differentiable tile rasterization (port of ``gstk_tpu/ops/rasterize.py``).
 
 Per horizontal band: tile footprints (tight visible-support extents or the
 3-sigma square), binning (:mod:`gstk_torch.ops.binning`), and tile
-compositing (kernel K1, :mod:`gstk_torch.ops.raster_cuda`). The background
-is added through the final transmittance after all bands.
+compositing (:mod:`gstk_torch.ops.raster_cuda`) as one autograd Function.
+The background is added through the final transmittance after all bands.
 
 Alpha semantics match the reference forward kernel: clamp at 0.999, skip
 ``sigma < 0`` and ``alpha < 1/255``, stop for good at ``T <= 1e-4``.
 
-The backward pass (the compositing backward kernel and the per-Gaussian
-gradient reduction) is not ported yet: differentiating :func:`rasterize`
-raises.
+The backward pass (port of ``_make_composite_pallas``' VJP): kernel K2
+writes per-intersection gradients by sorted position, a gather by
+``expansion_positions`` puts them in Gaussian-major expansion order, and
+kernel K4 (:func:`gstk_torch.ops.segment_kernel.segment_sum_sorted`) sums
+each Gaussian's contiguous segment. Gradients flow to xys, conics, colors,
+opacities and the background; binning is not differentiated, and gradients
+add across bands through autograd.
 """
 
 from __future__ import annotations
@@ -19,12 +23,24 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from gstk_torch.ops.binning import bin_gaussians
+from gstk_torch.ops.binning import bin_gaussians, expansion_positions
 from gstk_torch.ops.projection import tight_extents, tile_bbox
 from gstk_torch.ops.raster_cuda import (
+    composite_tiles_bwd,
+    composite_tiles_bwd_plain,
     composite_tiles_fwd,
     composite_tiles_fwd_plain,
+)
+from gstk_torch.ops.segment_kernel import (
+    segment_sum_sorted,
+    segment_sum_sorted_plain,
+)
+
+FORWARD_ONLY_MESSAGE = (
+    "RasterizeConfig.forward_only=True skips the expansion permutation the "
+    "backward reduction needs; use forward_only=False for training."
 )
 
 BACKENDS = ("auto", "plain")
@@ -36,8 +52,7 @@ class RasterizeConfig:
 
     ``kernel_precision`` and ``attr_layout`` are TPU-only knobs of gstk_tpu;
     they are accepted and ignored: the port always computes in exact f32
-    and gathers attributes by Gaussian id. ``forward_only`` is accepted and
-    has no effect yet: every rasterize of this version is forward-only."""
+    and gathers attributes by Gaussian id."""
 
     block_width: int = 16  # tile side in pixels
     chunk_size: int = 32  # entries per step of the plain compositing loop
@@ -53,7 +68,9 @@ class RasterizeConfig:
     bands: int = 1
     kernel_precision: str = "exact"  # TPU-only: ignored
     attr_layout: str = "auto"  # TPU-only: ignored
-    forward_only: bool = False  # ignored: rasterize is forward-only here
+    # render-only: binning skips the expansion permutation the backward
+    # needs, and differentiating the result raises
+    forward_only: bool = False
 
 
 def _tiles_to_image(tiles, tile_bounds, block_width, img_height, img_width):
@@ -87,16 +104,10 @@ def rasterize(
     depth as a 4th channel); the CUDA kernel takes 3 or 4.
 
     ``num_tiles_hit`` is accepted for API compatibility; tile footprints are
-    recomputed per band. Raises when autograd would need a gradient."""
+    recomputed per band. Gradients flow to xys, conics, colors, opacities
+    and background."""
     if config.backend not in BACKENDS:
         raise ValueError(f"RasterizeConfig.backend {config.backend!r} not in {BACKENDS}")
-    needs_grad = [x for x in (xys, conics, colors, opacities, background)
-                  if x is not None and x.requires_grad]
-    if torch.is_grad_enabled() and needs_grad:
-        raise NotImplementedError(
-            "gstk_torch.rasterize is forward-only: the compositing backward "
-            "pass is not ported yet; call it under torch.no_grad()"
-        )
     bw = config.block_width
     tiles_x = (img_width + bw - 1) // bw
     tiles_y_total = (img_height + bw - 1) // bw
@@ -108,7 +119,7 @@ def rasterize(
 
     radii_f = radii.to(torch.float32)
     if config.tight_culling:
-        ext = tight_extents(conics, opacities, radii_f)
+        ext = tight_extents(conics.detach(), opacities.detach(), radii_f)
     else:
         ext = torch.stack([radii_f, radii_f], dim=-1)
     ext_alive = (ext[:, 0] > 0) & (ext[:, 1] > 0)
@@ -126,7 +137,7 @@ def rasterize(
         else:
             shift = torch.tensor([0.0, float(y0)], device=xys.device)
             xys_b = xys - shift
-        tmin, tmax = tile_bbox(xys_b, ext, (tiles_x, rows_b), bw)
+        tmin, tmax = tile_bbox(xys_b.detach(), ext, (tiles_x, rows_b), bw)
         area = (tmax[:, 0] - tmin[:, 0]) * (tmax[:, 1] - tmin[:, 1])
         counts_b = torch.where(ext_alive, area, 0).to(torch.int32)
         img_b, t_b, ni = _rasterize_band(
@@ -148,6 +159,60 @@ def rasterize(
     return img, alpha
 
 
+class _CompositeTiles(torch.autograd.Function):
+    """Tile compositing with its backward pass.
+
+    Forward: kernel K1 (or its twin). Backward: K2's per-intersection
+    gradients, gathered into expansion order by ``positions`` and summed per
+    Gaussian by K4 over the segments ``hi = min(cumsum(counts), cap)``.
+    ``positions`` is None for a forward-only rasterize, whose backward
+    raises."""
+
+    @staticmethod
+    def forward(ctx, xys, conics, colors, opacities, gaussian_ids, tile_bins,
+                positions, counts, tile_bounds, block_width, plain, chunk):
+        args = (xys, conics, opacities, colors, gaussian_ids, tile_bins,
+                tile_bounds, block_width)
+        if plain:
+            acc, final_t, _ = composite_tiles_fwd_plain(*args, chunk=chunk)
+        else:
+            acc, final_t = composite_tiles_fwd(*args)
+        ctx.save_for_backward(xys, conics, colors, opacities, gaussian_ids,
+                              tile_bins, positions, counts, acc, final_t)
+        ctx.geometry = (tile_bounds, block_width, plain, chunk)
+        return acc, final_t
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_acc, g_final_t):
+        (xys, conics, colors, opacities, gaussian_ids, tile_bins, positions,
+         counts, acc, final_t) = ctx.saved_tensors
+        tile_bounds, block_width, plain, chunk = ctx.geometry
+        if positions is None:
+            raise ValueError(FORWARD_ONLY_MESSAGE)
+        if g_acc is None:
+            g_acc = torch.zeros_like(acc)
+        if g_final_t is None:
+            g_final_t = torch.zeros_like(final_t)
+        args = (xys, conics, opacities, colors, gaussian_ids, tile_bins, acc,
+                final_t, g_acc.contiguous(), g_final_t.contiguous(),
+                tile_bounds, block_width)
+        if plain:
+            gout, _ = composite_tiles_bwd_plain(*args, chunk=chunk)
+            segment_sum = segment_sum_sorted_plain
+        else:
+            gout = composite_tiles_bwd(*args)
+            segment_sum = segment_sum_sorted
+        # rows in expansion (Gaussian-major) order: each Gaussian's entries
+        # are then one contiguous segment ending at its clipped count cumsum
+        g_et = gout.index_select(0, positions).t().contiguous()
+        cap = gaussian_ids.shape[0]
+        hi = torch.clamp(torch.cumsum(counts.long(), 0), max=cap)
+        sums = segment_sum(g_et, hi)  # (6 + ch, N)
+        return (sums[0:2].t(), sums[2:5].t(), sums[6:].t(), sums[5],
+                None, None, None, None, None, None, None, None)
+
+
 def _rasterize_band(
     xys, depths, ext, conics, counts, colors, opacities,
     img_height, img_width, config,
@@ -158,15 +223,16 @@ def _rasterize_band(
     bw = config.block_width
     tile_bounds = ((img_width + bw - 1) // bw, (img_height + bw - 1) // bw)
     isect = bin_gaussians(
-        xys, depths, ext, counts, tile_bounds, bw, config.isect_capacity,
-        segment_backend=config.backend,
+        xys.detach(), depths.detach(), ext, counts, tile_bounds, bw,
+        config.isect_capacity, segment_backend=config.backend,
+        need_expansion=not config.forward_only,
     )
-    args = (xys, conics, opacities, colors, isect.gaussian_ids,
-            isect.tile_bins, tile_bounds, bw)
-    if config.backend == "plain":
-        acc, final_t, _ = composite_tiles_fwd_plain(*args, chunk=config.chunk_size)
-    else:
-        acc, final_t = composite_tiles_fwd(*args)
+    positions = None if config.forward_only else expansion_positions(isect)
+    acc, final_t = _CompositeTiles.apply(
+        xys, conics, colors, opacities, isect.gaussian_ids, isect.tile_bins,
+        positions, counts, tile_bounds, bw, config.backend == "plain",
+        config.chunk_size,
+    )
     img = _tiles_to_image(acc, tile_bounds, bw, img_height, img_width)
     final_t_img = _tiles_to_image(
         final_t[..., None], tile_bounds, bw, img_height, img_width

@@ -1,19 +1,25 @@
-"""Sorted-boundary segment broadcast: kernel K3 and its plain twin.
+"""Sorted-boundary segment kernels: K3 (segment broadcast) and K4 (segment
+sum), each with its plain twin.
 
-Port of ``gstk_tpu/ops/segment_kernel.py::segment_broadcast``. For
-boundaries ``b`` sorted nondecreasing and up to three int32 columns ``d_c``
+Port of ``gstk_tpu/ops/segment_kernel.py``. For boundaries ``b`` sorted
+nondecreasing and up to three int32 columns ``d_c``, :func:`segment_broadcast`
+computes
 
     out_c[j] = sum_{i: b[i] <= j} d_c[i]   (mod 2**32),   j in [0, length)
 
 which is the composed scatter-then-cumsum of ``binning``: with ``b`` the
 cumsum of per-Gaussian tile counts and ``d = 1`` it gives every intersection
 slot the id of the Gaussian that owns it (sentinel N past the total).
+:func:`segment_sum_sorted` is the backward pass's per-Gaussian gradient
+reduction over contiguous segments with sorted ends ``hi``:
 
-:func:`segment_broadcast` launches the CUDA kernel
-(``csrc/segment_broadcast.cu``) for CUDA tensors and runs
-:func:`segment_broadcast_plain` only for CPU tensors. The TPU version's
-MXU limb matmuls, 128-lane table and chunk prefixes are TPU workarounds and
-are not carried over: the kernel is a binary search per slot.
+    out[c, g] = sum_{hi[g-1] <= j < hi[g]} vals[c, j]   (hi[-1] = 0)
+
+Each wrapper launches its CUDA kernel (``csrc/segment_broadcast.cu``,
+``csrc/segment_sum.cu``) for CUDA tensors and runs its plain twin only for
+CPU tensors. The TPU versions' MXU limb matmuls, masked MXU contractions,
+128-lane tables and chunk prefixes are TPU workarounds and are not carried
+over: K3 is a binary search per slot, K4 a warp per segment.
 """
 
 from __future__ import annotations
@@ -100,3 +106,67 @@ def segment_broadcast(
 
 
 segment_broadcast.launches = 0
+
+
+_SUM_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+def _check_sum(vals_t: torch.Tensor, hi: torch.Tensor) -> None:
+    if vals_t.ndim != 2 or vals_t.dtype != torch.float32:
+        raise ValueError(
+            f"vals_t must be (rows, Np) float32, got {vals_t.dtype} "
+            f"{tuple(vals_t.shape)}"
+        )
+    if hi.ndim != 1 or hi.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"hi must be a 1-D int tensor, got {hi.dtype} {tuple(hi.shape)}")
+    if hi.device != vals_t.device:
+        raise ValueError("vals_t and hi must be on one device")
+
+
+def segment_sum_sorted_plain(vals_t: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The definition as one ``index_add_`` by segment id: value j belongs to
+    segment ``#{g: min(hi[g], Np) <= j}``, and values past the last end fall
+    into a dropped extra segment."""
+    _check_sum(vals_t, hi)
+    rows, npv = vals_t.shape
+    n = hi.shape[0]
+    hi_c = torch.clamp(hi.long(), max=npv)
+    j = torch.arange(npv, device=vals_t.device)
+    seg = torch.searchsorted(hi_c, j, right=True)
+    out = torch.zeros((rows, n + 1), dtype=torch.float32, device=vals_t.device)
+    out.index_add_(1, seg, vals_t)
+    return out[:, :n]
+
+
+def segment_sum_sorted(vals_t: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``out[c, g] = sum_{hi[g-1] <= j < hi[g]} vals_t[c, j]`` (hi[-1] = 0):
+    kernel K4 on CUDA tensors, the plain twin on CPU tensors.
+
+    ``vals_t`` (rows, Np) float32; ``hi`` (N,) nondecreasing segment ends,
+    clipped to Np. Returns (rows, N) float32, zero for empty segments; the
+    kernel sums in a fixed order, so its result is the same on every run."""
+    _check_sum(vals_t, hi)
+    if vals_t.device.type == "cpu":
+        return segment_sum_sorted_plain(vals_t, hi)
+    if vals_t.device.type != "cuda":
+        raise ValueError(f"segment_sum_sorted: unsupported device {vals_t.device}")
+    rows, npv = vals_t.shape
+    n = hi.shape[0]
+    vals = vals_t.contiguous()
+    hi32 = torch.clamp(hi, max=npv).to(torch.int32).contiguous()
+    out = torch.empty((rows, n), dtype=torch.float32, device=vals.device)
+    fn = _build.kernel_function("gstk_segment_sum", _SUM_ARGTYPES)
+    with torch.cuda.device(vals.device):
+        err = fn(
+            vals.data_ptr(), rows, npv, hi32.data_ptr(), n, out.data_ptr(),
+            torch.cuda.current_stream(vals.device).cuda_stream,
+        )
+    _build.check("segment_sum_sorted", err)
+    segment_sum_sorted.launches += 1
+    return out
+
+
+segment_sum_sorted.launches = 0

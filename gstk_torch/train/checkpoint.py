@@ -1,29 +1,36 @@
-"""Checkpoint reading and scene writing (port of the scene half of
-``gstk_tpu/train/checkpoint.py``).
+"""Checkpoint reading, scene writing and the train state as flat numpy
+arrays (port of part of ``gstk_tpu/train/checkpoint.py``).
 
 gstk_tpu writes one ``step-{step:09d}.ckpt.npz`` per save: the flattened
-train state under path keys (``.scene/.means``, ..., ``.step``) plus scalar
-run metadata under ``.meta/`` (``isect_capacity``, ``bands``,
-``sh_degree``). This module reads that layout with numpy alone, and
-:func:`save_scene` writes a scene-only file in the same layout, which both
-packages can load for rendering.
+train state under path keys (``.scene/.means``, ``.adam/.mu/['means']``,
+``.refine/.vis_counts``, ..., ``.step``) plus scalar run metadata under
+``.meta/`` (``isect_capacity``, ``bands``, ``sh_degree``). This module reads
+that layout with numpy alone; :func:`save_scene` writes a scene-only file in
+it, which both packages can load for rendering; and
+:func:`train_state_to_numpy` / :func:`train_state_from_numpy` carry the full
+train state under the same keys, so a run can move between the packages.
 """
 
 from __future__ import annotations
 
 import re
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
-from gstk_torch import DeviceLike
+from gstk_torch import DeviceLike, resolve_device
 from gstk_torch.core.gaussians import (
     FIELD_NAMES,
+    PARAM_NAMES,
     GaussianScene,
     scene_from_numpy,
     scene_to_numpy,
 )
+from gstk_torch.train.optim import AdamState
+from gstk_torch.train.step import TrainState
+from gstk_torch.train.strategy import RefineState
 
 
 def save_scene(ckpt_dir, scene: GaussianScene, step: int = 0,
@@ -72,3 +79,42 @@ def peek_capacity(path) -> Optional[int]:
         if ".scene/.means" in data.files:
             return int(data[".scene/.means"].shape[0])
     return None
+
+
+def _moment_key(which: str, group: str) -> str:
+    return f".adam/.{which}/['{group}']"
+
+
+def train_state_to_numpy(state: TrainState) -> Dict[str, np.ndarray]:
+    """The train state as numpy arrays under gstk_tpu's checkpoint keys."""
+    host = lambda x: x.detach().cpu().numpy()
+    flat = {f".scene/.{k}": v for k, v in scene_to_numpy(state.scene).items()}
+    flat[".adam/.count"] = host(state.adam.count)
+    for which, moments in (("mu", state.adam.mu), ("nu", state.adam.nu)):
+        for group, v in moments.items():
+            flat[_moment_key(which, group)] = host(v)
+    for k in RefineState._fields:
+        flat[f".refine/.{k}"] = host(getattr(state.refine, k))
+    flat[".step"] = host(state.step)
+    return flat
+
+
+def train_state_from_numpy(arrays: Dict[str, np.ndarray],
+                           device: DeviceLike = None) -> TrainState:
+    """A train state (copies, on ``device``) from arrays under gstk_tpu's
+    checkpoint keys, e.g. an ``np.load`` of its checkpoint."""
+    device = resolve_device(device)
+    scene = scene_from_numpy(
+        {k: arrays[f".scene/.{k}"] for k in FIELD_NAMES}, device
+    )
+    t = lambda key, dtype: torch.tensor(np.asarray(arrays[key]), dtype=dtype,
+                                        device=device)
+    f32 = torch.float32
+    adam = AdamState(
+        count=t(".adam/.count", torch.int32),
+        mu={g: t(_moment_key("mu", g), f32) for g in PARAM_NAMES},
+        nu={g: t(_moment_key("nu", g), f32) for g in PARAM_NAMES},
+    )
+    refine = RefineState(*(t(f".refine/.{k}", f32) for k in RefineState._fields))
+    return TrainState(scene=scene, adam=adam, refine=refine,
+                      step=t(".step", torch.int32))

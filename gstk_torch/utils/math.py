@@ -43,7 +43,8 @@ def random_quats(generator: torch.Generator, n: int) -> torch.Tensor:
 
 
 def normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    return x / torch.clamp(torch.linalg.norm(x, dim=dim, keepdim=True), min=eps)
+    norm = torch.linalg.norm(x, dim=dim, keepdim=True)
+    return x / torch.maximum(norm, torch.full_like(norm, eps))
 
 
 def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,12 @@ machine with a card:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 K3 (segment broadcast) must equal its twin exactly; K1 (tile compositing)
-must agree within gstk_tpu's image parity tolerances (rtol 1e-3, atol 1e-4).
+must agree within gstk_tpu's image parity tolerances (rtol 1e-3, atol 1e-4);
+K2 (compositing backward) within the gradient tolerance (rtol 5e-3, atol
+1e-4 of each column's largest value); K4 (segment sum) within rtol 1e-5 and
+atol 1e-6 of the segment's sum of magnitudes (the f32 summation error grows
+with it; one segment here sums 40k values). The backward K2 -> gather -> K4
+must give the same bits on every run.
 """
 
 import numpy as np
@@ -17,9 +22,19 @@ import torch
 from gstk_torch.core.cameras import Camera
 from gstk_torch.core.gaussians import scene_from_numpy
 from gstk_torch.models.vanilla import splat_inputs
-from gstk_torch.ops.binning import bin_gaussians
-from gstk_torch.ops.raster_cuda import composite_tiles_fwd, composite_tiles_fwd_plain
-from gstk_torch.ops.segment_kernel import segment_broadcast, segment_broadcast_plain
+from gstk_torch.ops.binning import bin_gaussians, expansion_positions
+from gstk_torch.ops.raster_cuda import (
+    composite_tiles_bwd,
+    composite_tiles_bwd_plain,
+    composite_tiles_fwd,
+    composite_tiles_fwd_plain,
+)
+from gstk_torch.ops.segment_kernel import (
+    segment_broadcast,
+    segment_broadcast_plain,
+    segment_sum_sorted,
+    segment_sum_sorted_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -54,7 +69,7 @@ def test_segment_broadcast_kernel_equals_twin(cuda, case):
         assert torch.equal(x, y)
 
 
-def _scene(rng, n=3000, sh=1):
+def _scene(rng, n=3000, sh=1, opacity_logit=None):
     means = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
                       rng.uniform(-8, -2, n)], -1)
     arrays = {
@@ -63,6 +78,8 @@ def _scene(rng, n=3000, sh=1):
         "features_rest": 0.3 * rng.normal(size=(n, (sh + 1) ** 2 - 1, 3)),
         "opacities": rng.uniform(-1.0, 3.0, (n, 1)), "alive": np.ones(n, bool),
     }
+    if opacity_logit is not None:  # e.g. logit(0.99): tiles stop early
+        arrays["opacities"][:] = opacity_logit
     return {k: v.astype(np.float32) if k != "alive" else v for k, v in arrays.items()}
 
 
@@ -97,3 +114,93 @@ def test_composite_kernel_rejects_untaken_shapes(cuda):
             torch.zeros(1, 2, dtype=torch.int32, device=cuda), (1, 1))
     with pytest.raises(ValueError, match="ch in"):
         composite_tiles_fwd(*args)
+
+
+def _close(got, want, rtol, atol):
+    """|got - want| <= atol + rtol |want| (atol broadcasts)."""
+    ok = (got - want).abs() <= atol + rtol * want.abs()
+    assert bool(ok.all()), (
+        f"{int((~ok).sum())} of {ok.numel()} outside, max abs err "
+        f"{float((got - want).abs().max())}"
+    )
+
+
+def _backward_inputs(cuda, ch, opacity_logit=None, seed=0):
+    """A scene's intersections, K1's outputs and random cotangents."""
+    h, w = 240, 320
+    scene = scene_from_numpy(_scene(np.random.default_rng(seed),
+                                    opacity_logit=opacity_logit), cuda)
+    camera = Camera.create(300.0, 300.0, w / 2, h / 2, np.eye(4)[:3], device=cuda)
+    tiles = ((w + 15) // 16, (h + 15) // 16)
+    with torch.no_grad():
+        inp = splat_inputs(scene, camera, h, w, sh_degree=1)
+        isect = bin_gaussians(inp["xys"], inp["depths"], inp["radii"],
+                              inp["num_tiles_hit"], tiles, 16, 1 << 18)
+    assert 0 < int(isect.num_intersects) <= 1 << 18
+    fwd = (inp["xys"], inp["conics"], inp["opacities"],
+           inp["colors"][:, :ch].contiguous(), isect.gaussian_ids,
+           isect.tile_bins, tiles)
+    acc, final_t = composite_tiles_fwd(*fwd)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    g_acc = torch.randn(acc.shape, generator=g, device=cuda)
+    g_t = torch.randn(final_t.shape, generator=g, device=cuda)
+    return fwd[:6] + (acc, final_t, g_acc, g_t, tiles), isect, inp
+
+
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("ch", [3, 4])
+def test_composite_bwd_kernel_matches_twin(cuda, ch, opaque):
+    """K2 against its twin; with opacity 0.99 most tiles stop early, and the
+    entries they never reach must stay zero."""
+    args, isect, _ = _backward_inputs(
+        cuda, ch, opacity_logit=float(np.log(99.0)) if opaque else None
+    )
+    before = composite_tiles_bwd.launches
+    gout = composite_tiles_bwd(*args)
+    assert composite_tiles_bwd.launches == before + 1
+    gout_p, kept = composite_tiles_bwd_plain(*args)
+    assert gout.shape == (isect.gaussian_ids.shape[0], 6 + ch)
+    _close(gout, gout_p, 5e-3, 1e-4 * gout_p.abs().amax(0, keepdim=True))
+    assert int(kept.sum()) > 0
+    untouched = gout_p.abs().sum(1) == 0
+    assert bool((gout[untouched] == 0).all())
+    if opaque:
+        assert float(untouched[: int(isect.num_intersects)].float().mean()) > 0.1
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "one_covers_all", "clipped"])
+def test_segment_sum_kernel_matches_twin(cuda, case):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rows, npv, n = 10, 1 << 16, 20_000
+    vals = torch.randn((rows, npv), generator=g, device=cuda)
+    counts = torch.randint(0, 7, (n,), generator=g, device=cuda)
+    if case == "empty":  # most segments empty, as dead Gaussians are
+        counts[torch.rand(n, generator=g, device=cuda) < 0.8] = 0
+    hi = torch.cumsum(counts, 0)
+    if case == "one_covers_all":
+        hi = torch.zeros(n, dtype=torch.int64, device=cuda)
+        hi[n // 3:] = npv + 100
+    if case == "clipped":  # ends run past Np and are clipped there
+        hi = hi * 8
+    before = segment_sum_sorted.launches
+    got = segment_sum_sorted(vals, hi.int())
+    assert segment_sum_sorted.launches == before + 1
+    want = segment_sum_sorted_plain(vals, hi.int())
+    _close(got, want, 1e-5, 1e-6 * segment_sum_sorted_plain(vals.abs(), hi.int()))
+    lo = torch.cat([hi.new_zeros(1), torch.clamp(hi, max=npv)[:-1]])
+    empty = torch.clamp(hi, max=npv) <= lo
+    assert bool((got[:, empty] == 0).all())
+
+
+def test_backward_is_deterministic(cuda):
+    """K2 -> gather by expansion position -> K4 twice: the same bits."""
+    args, isect, inp = _backward_inputs(cuda, 4, seed=2)
+    positions = expansion_positions(isect)
+    hi = torch.clamp(torch.cumsum(inp["num_tiles_hit"].long(), 0),
+                     max=isect.gaussian_ids.shape[0])
+
+    def backward():
+        gout = composite_tiles_bwd(*args)
+        return segment_sum_sorted(gout.index_select(0, positions).t().contiguous(), hi)
+
+    assert torch.equal(backward(), backward())

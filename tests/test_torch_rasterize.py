@@ -122,14 +122,18 @@ def test_rasterize_matches_jax_pallas_and_oracle(rng, ch, bands):
 
 
 def test_rasterize_is_forward_only(rng):
+    """``forward_only=True`` renders without the expansion permutation, and
+    differentiating it raises with gstk_tpu's message."""
     proj, colors, opac, cam = _scene(rng, 3, n=20)
     targs = [torch.from_numpy(proj[k]) for k in ("xys", "depths", "radii",
                                                  "conics", "num_tiles_hit")]
     colors_t = torch.from_numpy(colors).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tras.rasterize(*targs, colors_t, torch.from_numpy(opac),
-                       cam["img_h"], cam["img_w"])
+    cfg = tras.RasterizeConfig(forward_only=True)
+    img, _ = tras.rasterize(*targs, colors_t, torch.from_numpy(opac),
+                            cam["img_h"], cam["img_w"], config=cfg)
+    with pytest.raises(ValueError, match="forward_only=True skips"):
+        torch.autograd.grad(img.sum(), colors_t)
     with torch.no_grad():
-        img, _ = tras.rasterize(*targs, colors_t, torch.from_numpy(opac),
-                                cam["img_h"], cam["img_w"])
-    assert torch.isfinite(img).all()
+        img_ng, _ = tras.rasterize(*targs, colors_t, torch.from_numpy(opac),
+                                   cam["img_h"], cam["img_w"], config=cfg)
+    assert torch.isfinite(img_ng).all() and torch.equal(img_ng, img.detach())
