@@ -7,7 +7,8 @@ line:
   1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off
      (matmul and cuDNN, so SSIM's conv2d runs in f32);
   2. build: compile the CUDA kernels (``gstk_torch/csrc``) for sm_90a and
-     print nvcc's register / shared-memory / spill report;
+     print nvcc's register / shared-memory / spill report and the resident
+     CTAs per SM of K1 and K2 (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. scene: the render scene of ``bench.py`` (100k Gaussians, capacity
      104*1024, SH degree 3, 800x800, fx = fy = 1111) from a torch
      generator, written as a gstk_tpu-layout checkpoint;
@@ -20,20 +21,29 @@ line:
      (the bench camera and 7 pose offsets) with the launch counters reset
      just before; request 0 is compared with the same render through the
      plain twins on the card;
-  7. K1 and K3 timings at the render shapes;
+  7. K1 and K3 timings at the render shapes (K1 given the packed record, as
+     the render path gives it), and the device time of ``pack_records``;
+     kernel times are torch.profiler's mean over the launches it recorded,
+     printed with that count and the total over the calls made;
   8. train scene: ``bench.py``'s training point (the phase-3 scene,
      ``isect_capacity`` 3<<18, black background, default optimizer, a
-     uniform gt image from the seed-0 generator), no truncation;
+     uniform gt image from the seed-0 generator), no truncation; the tile
+     range lengths (mean, p99, max);
   9. kernels K2 (compositing backward) and K4 (segment sum) against their
      plain twins on the scene's intersections and the cotangents of the
      step's loss (K2 rtol 5e-3 / atol 1e-4 max|g| per column, and again with
      a random final_t cotangent; K4 rtol 1e-5 / atol 1e-6 of each segment's
      sum of magnitudes); K2 -> gather -> K4 twice must be bit-identical;
+     the (tile, warp, entry) triples with a kept pixel, from the plain
+     walk, for warps of 32 pixels (one pixel a thread) and
+     of 64 (two a thread, as K2's), and the time their warp shuffles
+     take at 5 (6 + ch) and at 16 shuffles each;
   10. train path: one step through the kernels, with the launch counters
      reset just before, against the same step with ``backend="plain"``
      from the same state (loss, gradients, updates, statistics, with the
      CPU step test's tolerances); then 2 warm-up and 10 timed steps (host
-     clock, synchronized), one traced step, and K2 / K4 timings;
+     clock, synchronized), one traced step (its cat launches listed), and
+     K2 / K4 / ``pack_records`` timings;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
 bounds), the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -63,6 +73,10 @@ from gstk_torch.ops.raster_cuda import (
     composite_tiles_bwd_plain,
     composite_tiles_fwd,
     composite_tiles_fwd_plain,
+    KERNEL_CHANNELS,
+    _walk,
+    pack_records,
+    resident_ctas,
 )
 from gstk_torch.ops.rasterize import RasterizeConfig, _tiles_to_image
 from gstk_torch.ops.segment_kernel import (
@@ -92,7 +106,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 K1_FLOP_PER_PAIR = 21  # ~20 FLOP + 1 exp per (pixel, entry) pair evaluated
 # K2 (csrc/composite_bwd.cu): the recompute per pair evaluated, and the
-# gradient per pair kept, at ch channels
+# gradient per pair kept, at ch channels. The sum over pixels counts the
+# 6 + ch adds a pair needs, not the butterfly's 16 padded adds and selects
+# a lane, nor any shuffle: those are the kernel's cost, not the function's.
 K2_FLOP_PER_PAIR = 15
 K2_FLOP_PER_KEPT = lambda ch: 37 + 4 * ch
 
@@ -101,9 +117,9 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -168,10 +184,14 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernel_name: str, iters: int):
-    """Mean device ms of the CUDA kernel named ``kernel_name`` per call of
-    ``fn``, from torch.profiler; None when the profiler records no device
-    time."""
+def kernel_device_ms(fn, kernel_name, iters: int) -> dict:
+    """Device time of the CUDA kernel named ``kernel_name`` (every device
+    event when None) over ``iters`` calls of ``fn``, from torch.profiler:
+    ``ms`` the mean over the launches the profiler recorded,
+    ``ms_per_call`` the recorded total over ``iters`` and
+    ``profiler_launches`` the count recorded, which has been a few more and
+    a few fewer than the launches made on the card. Both times are None
+    when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -180,11 +200,17 @@ def kernel_device_ms(fn, kernel_name: str, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if kernel_name in e.key
-    )
-    return us / 1e3 / iters if us > 0 else None
+    events = [e for e in prof.key_averages()
+              if (kernel_name in e.key if kernel_name is not None
+                  else e.device_type == torch.autograd.DeviceType.CUDA)]
+    us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    print(f"  profiler: {launches} launches of {kernel_name or 'any kernel'} "
+          f"recorded for {iters} calls, {us / 1e3:.4f} ms in all")
+    if us <= 0:
+        return {"ms": None, "ms_per_call": None, "profiler_launches": launches}
+    return {"ms": us / 1e3 / launches, "ms_per_call": us / 1e3 / iters,
+            "profiler_launches": launches}
 
 
 def main() -> int:
@@ -214,6 +240,10 @@ def run(ckpt_dir: str) -> int:
     for line in build.ptxas_log.splitlines():
         if line.startswith("==") or any(k in line for k in ("registers", "spill", "Compiling entry")):
             print("  " + line.strip())
+    resident = {}
+    for name, kernel in (("composite_tiles_fwd", "fwd"), ("composite_tiles_bwd", "bwd")):
+        resident[name] = {ch: resident_ctas(kernel, ch) for ch in KERNEL_CHANNELS}
+        print(f"{name}: resident CTAs per SM by ch {resident[name]}")
 
     phase("3 scene")
     t0 = time.perf_counter()
@@ -331,8 +361,8 @@ def run(ckpt_dir: str) -> int:
     j = torch.arange(length, dtype=torch.int32, device=dev)
     k3_in = (torch.clamp(cum, max=length), [ones], length)
     k3 = {
-        "ms": kernel_device_ms(lambda: segment_broadcast(*k3_in),
-                               "segment_broadcast_kernel", iters),
+        **kernel_device_ms(lambda: segment_broadcast(*k3_in),
+                           "segment_broadcast_kernel", iters),
         "wrapper_ms": event_ms(lambda: segment_broadcast(*k3_in), iters),
         "plain_ms": event_ms(lambda: segment_broadcast_plain(*k3_in), iters),
         # with d = 1 the function is #{i: b[i] <= j}: one searchsorted
@@ -340,10 +370,12 @@ def run(ckpt_dir: str) -> int:
     }
     k3_bytes = 4 * CAPACITY * 2 + 4 * length  # b and d read, one column written
     k3_ops = length * math.ceil(math.log2(CAPACITY)) * 4  # search steps
+    k1_rec = pack_records(*k1_args[:4])
     k1 = {
-        "ms": kernel_device_ms(lambda: composite_tiles_fwd(*k1_args),
-                               "composite_fwd_kernel", iters),
-        "wrapper_ms": event_ms(lambda: composite_tiles_fwd(*k1_args), iters),
+        **kernel_device_ms(lambda: composite_tiles_fwd(*k1_args, records=k1_rec),
+                           "composite_fwd_kernel", iters),
+        "wrapper_ms": event_ms(lambda: composite_tiles_fwd(*k1_args, records=k1_rec),
+                               iters),
         "plain_ms": event_ms(lambda: composite_tiles_fwd_plain(*k1_args), 3),
         "library_ms": None,  # no single PyTorch call composites tiles
     }
@@ -352,7 +384,10 @@ def run(ckpt_dir: str) -> int:
     k1_bytes = (n_isect * (4 + 4 * (6 + ch)) + num_tiles * 8
                 + num_tiles * 256 * (ch + 1) * 4)
     k1_ops = pairs * K1_FLOP_PER_PAIR
-    print(f"K3 {k3}\nK1 {k1}")
+    # the record K1 and K2 read, built once per band outside both kernels
+    pack = {"render": kernel_device_ms(lambda: pack_records(*k1_args[:4]),
+                                       None, iters)}
+    print(f"K3 {k3}\nK1 {k1}\npack_records {pack['render']}")
     del renderer, plain, outs
 
     phase("8 train scene")
@@ -374,6 +409,14 @@ def run(ckpt_dir: str) -> int:
     t_n_isect = int(t_isect.num_intersects)
     print(f"train scene: {t_n_isect} intersections of capacity {TRAIN_ISECT}")
     assert 0 < t_n_isect <= TRAIN_ISECT, "training intersections truncated"
+    lengths = (t_isect.tile_bins[:, 1] - t_isect.tile_bins[:, 0]).double()
+    tile_lengths = {"mean": float(lengths.mean()),
+                    "p99": float(torch.quantile(lengths, 0.99)),
+                    "max": float(lengths.max())}
+    print(f"tile range lengths over {lengths.numel()} tiles: mean "
+          f"{tile_lengths['mean']:.3f}, p99 {tile_lengths['p99']:.3f}, max "
+          f"{tile_lengths['max']:.0f} (max / mean "
+          f"{tile_lengths['max'] / tile_lengths['mean']:.3f})")
 
     phase("9 K2 composite_tiles_bwd and K4 segment_sum_sorted vs plain twins")
     fwd_args = (t_in["xys"], t_in["conics"], t_in["opacities"], t_in["colors"],
@@ -427,6 +470,16 @@ def run(ckpt_dir: str) -> int:
           f"err {k4_err:.3g} (sums {tuple(sums.shape)}); backward bit-identical "
           f"over two runs; {t_pairs} (pixel, entry) pairs evaluated, "
           f"{t_kept_pairs} kept")
+    warp_entries = kept_warp_entries(fwd_args)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    shuffle_ms = lambda n, s: n * s / (sms * mhz * 1e6) * 1e3
+    for px, n in warp_entries.items():
+        print(f"{n} (tile, warp, entry) triples with a kept pixel for warps of "
+              f"{px} pixels; at one warp shuffle per SM and clock ({sms} SMs, "
+              f"{mhz:.0f} MHz max SM clock) their shuffles take "
+              f"{shuffle_ms(n, 5 * (6 + ch)):.4f} ms at {5 * (6 + ch)} each, "
+              f"{shuffle_ms(n, 16):.4f} ms at 16 each")
 
     phase("10 train path: one step through the kernels vs backend='plain'")
     step_fn = make_train_step(model_cfg, train_raster, OptimizerConfig(), H, W,
@@ -467,12 +520,16 @@ def run(ckpt_dir: str) -> int:
           f"after 2 warm-ups); loss {float(metrics['loss']):.5f}, psnr "
           f"{float(metrics['psnr']):.3f}, num_intersects "
           f"{int(metrics['num_intersects'])}")
-    trace("train step", lambda: step_fn(state, camera, gt))
+    # the cat of pack_records is one of the step's CatArrayBatchedCopy launches
+    trace("train step", lambda: step_fn(state, camera, gt),
+          show=("CatArrayBatchedCopy",))
 
+    k2_rec = pack_records(*fwd_args[:4])
     k2 = {
-        "ms": kernel_device_ms(lambda: composite_tiles_bwd(*bwd_args),
-                               "composite_bwd_kernel", iters),
-        "wrapper_ms": event_ms(lambda: composite_tiles_bwd(*bwd_args), iters),
+        **kernel_device_ms(lambda: composite_tiles_bwd(*bwd_args, records=k2_rec),
+                           "composite_bwd_kernel", iters),
+        "wrapper_ms": event_ms(lambda: composite_tiles_bwd(*bwd_args, records=k2_rec),
+                               iters),
         "plain_ms": event_ms(lambda: composite_tiles_bwd_plain(*bwd_args), 3),
         "library_ms": None,  # no single PyTorch call composites backward
     }
@@ -483,8 +540,8 @@ def run(ckpt_dir: str) -> int:
     lib_vals = g_et[:, :covered].contiguous()
     lib_lengths = lengths[None].expand(rows, n_seg).contiguous()
     k4 = {
-        "ms": kernel_device_ms(lambda: segment_sum_sorted(g_et, hi),
-                               "segment_sum_kernel", iters),
+        **kernel_device_ms(lambda: segment_sum_sorted(g_et, hi),
+                           "segment_sum_kernel", iters),
         "wrapper_ms": event_ms(lambda: segment_sum_sorted(g_et, hi), iters),
         "plain_ms": event_ms(lambda: segment_sum_sorted_plain(g_et, hi), iters),
         "library_ms": event_ms(lambda: torch.segment_reduce(
@@ -492,7 +549,8 @@ def run(ckpt_dir: str) -> int:
     }
     lib = torch.segment_reduce(lib_vals, "sum", lengths=lib_lengths, axis=1)
     assert_close("segment_reduce vs K4", lib, sums, rtol=1e-5, atol=1e-6 * mag)
-    print(f"K2 {k2}\nK4 {k4}")
+    pack["train"] = kernel_device_ms(lambda: pack_records(*fwd_args[:4]), None, iters)
+    print(f"K2 {k2}\nK4 {k4}\npack_records {pack['train']}")
     k2_bytes = (TRAIN_ISECT * (6 + ch) * 4 + t_n_isect * (4 + 4 * (6 + ch))
                 + num_tiles * 256 * (2 * ch + 2) * 4 + num_tiles * 8)
     k2_ops = t_pairs * K2_FLOP_PER_PAIR + t_kept_pairs * K2_FLOP_PER_KEPT(ch)
@@ -522,6 +580,8 @@ def run(ckpt_dir: str) -> int:
             "max_abs_err": err, "max_err": err,
             "ms": t["ms"] if t["ms"] is not None else t["wrapper_ms"],
             "ms_source": "profiler" if t["ms"] is not None else "events",
+            "ms_per_call": t["ms_per_call"],
+            "profiler_launches": t["profiler_launches"], "profiler_calls": iters,
             "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -530,8 +590,13 @@ def run(ckpt_dir: str) -> int:
         }
         if name in launches:
             entry["launches_render"] = launches[name]
+        if name in resident:
+            entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels,
+                      "train_tile_lengths": tile_lengths,
+                      "train_kept_warp_entries": warp_entries,
+                      "pack_records": pack,
                       "request_ms_median": statistics.median(ms),
                       "request_ms_min": min(ms),
                       "train_step_ms_median": statistics.median(ms_steps),
@@ -540,6 +605,20 @@ def run(ckpt_dir: str) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
+
+
+def kept_warp_entries(fwd_args) -> dict:
+    """By warp size (32 and 64 consecutive pixels of a tile, 2 and 4 rows):
+    the (tile, warp, entry) triples in which at least one of the warp's
+    pixels keeps the entry, from the plain walk's keep mask. K2's warps hold
+    64 pixels, so the 64 count is the warp reductions it runs."""
+    xys, conics, opacities, _, gids, bins, tiles = fwd_args
+    total = {32: 0, 64: 0}
+    for c in _walk(xys, conics, opacities, gids, bins, tiles, 16, 32):
+        t, p, k = c.keep.shape
+        for px in total:
+            total[px] += int(c.keep.view(t, p // px, px, k).any(2).sum())
+    return total
 
 
 def step_cotangents(acc, final_t, tiles, gt, scene, model_cfg):
@@ -601,11 +680,12 @@ def compare_steps(metrics, metrics_p, before, got, want, optim_cfg):
           f"{float(metrics_p['loss']):.6f}; entries outside tolerance {worst}")
 
 
-def trace(label, fn, top: int = 8) -> None:
+def trace(label, fn, top: int = 8, show: tuple = ()) -> None:
     """One call of ``fn`` under torch.profiler (a separate, traced run): wall
     time, device busy time (the sum over device-side events, kernels and
     copies; one stream, so they do not overlap), the device's idle share,
-    and the device events that take most time."""
+    the device events that take most time and those whose name holds one
+    of ``show``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -621,8 +701,10 @@ def trace(label, fn, top: int = 8) -> None:
     print(f"traced {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"device idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{sum(e.count for e in events)} device events")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x  {e.key[:90]}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < top or any(s in e.key for s in show):
+            print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -20,32 +20,48 @@
 // indexed by sorted position. Rows the tile never reached (it stopped
 // early) keep the zeros the wrapper wrote; the per-Gaussian sums are K4's.
 //
-// Design: one CTA of 256 threads per tile, one thread per pixel, as K1.
-// Batches of 256 entries are gathered by Gaussian id into shared memory.
-// Every keep / skip / stop decision comes from composite_common.cuh, shared
-// with K1, and T is recomputed as K1 does (T *= 1 - alpha), so T_prev
+// Design: one CTA of 128 threads per tile, each thread two vertically
+// adjacent pixels of one column, so warp w holds rows 4w .. 4w + 3. Every
+// keep / skip / stop decision comes from composite_common.cuh, taken in
+// K1's order, and T is recomputed as K1 does (T *= 1 - alpha), so T_prev
 // equals the forward's bit for bit. The walk is front to back, the order of
 // the reference formula, so it needs nothing from the forward but acc and
-// final_t. The reduction over pixels is deterministic: per entry, each warp
-// sums its 32 pixels with a shuffle tree (skipped when no pixel of the warp
-// kept the entry) and lane 0 stores the warp's partial in shared memory
-// [8][256][6 + CH]; after the batch, thread k sums entry k's 8 partials in
-// warp order and writes its row. A tile owns its range, so no write races
-// and no atomics are needed. The loop over a batch is uniform across the
-// CTA, because the shuffles need every lane; a pixel that is done adds
-// zeros.
+// final_t. The range goes in batches of 64 entries:
+//   - Staging: threads 0-63 copy the batch's 48-B packed records with three
+//     16-B cp.async each into a double buffer, so batch i + 1 is in flight
+//     while batch i is walked; the ids come one batch ahead in registers.
+//   - Reduction over pixels: per entry, a thread adds its two pixels'
+//     6 + CH values in registers, and a warp with a kept pixel sums them,
+//     padded to 16, over its 32 lanes by recursive halving
+//     (warp_transpose_sum): 16 shuffles a warp-entry, after which lanes 2i
+//     store value i of the warp's partial row in one parallel store. A
+//     warp with no kept pixel skips the entry (__any_sync), and a warp
+//     whose pixels have all stopped skips the rest of the batch
+//     (__all_sync); both leave the entry's bit clear in the warp's mask,
+//     and the partial absent.
+//   - After the batch, the CTA sums each (entry, value)'s present warp
+//     partials in warp order and stores the batch's rows, coalesced.
+// A warp of 64 pixels in 4 rows meets fewer (warp, entry) pairs with a kept
+// pixel than two warps of 2 rows, so fewer butterflies run, and the two
+// pixels share the record's loads, dx and the votes. The partials of a
+// batch take 4 x 64 x (6 + CH) floats (10 KB at CH = 4), 15 KB of shared
+// memory in all, and __launch_bounds__ asks the registers to fit 8 CTAs
+// (32 warps) per SM. The pairing order of every sum is fixed, so the result
+// is deterministic, and a tile owns its range, so no write races and no
+// atomics are needed.
 //
 // Bound: operations. Per (pixel, entry) pair evaluated, the recompute takes
 // about 15 operations (dx, dy, sigma's 9, exp, raw, min, 1 - alpha, T);
 // per pair kept, the gradient takes 37 + 4 CH more: <g, c> (2 CH), w and
 // the prefix (3), 1 / max(1 - alpha, 1e-3) (3), v_alpha (6), v_sigma (2),
 // the x, y, a, b, c products (16), the opacity (1), the colors (CH) and the
-// sum over pixels (6 + CH). Per intersection the kernel moves the gid, 40 B
-// of attributes and a 40 B row (at CH = 4), per pixel 4 (2 CH + 2) B of
-// acc, final_t and cotangents: far fewer bytes than the 67 TFLOP/s f32 rate
-// needs. This first design does nothing about the bound yet: the shuffle
-// tree costs 5 (6 + CH) shuffles per warp and kept entry, gathers are
-// uncoalesced, and pixels that are done idle through the batch.
+// sum over pixels (6 + CH). Per intersection the kernel moves the id, a
+// 48-B record and a 40-B row (at CH = 4), per pixel 4 (2 CH + 2) B of acc,
+// final_t and cotangents: far fewer bytes than the 67 TFLOP/s f32 rate
+// needs. The operations count no shuffles, but the card issues one warp
+// shuffle per SM and clock, so shuffles can set the time: the butterfly
+// keeps a reduction to 16 of them, and the 64-pixel warps cut the
+// reductions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,22 +73,49 @@ namespace {
 using gstk::kBlock;
 using gstk::kPixels;
 
-constexpr int kWarps = kPixels / 32;
+constexpr int kPerThread = 2;  // pixels per thread
+constexpr int kThreads = kPixels / kPerThread;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBatch = 64;  // entries per staged batch and per partial sum
+constexpr int kPad = 16;    // values per entry in the butterfly
+constexpr int kMinBlocks = 8;  // resident CTAs per SM the registers must allow
 // floor of 1 - alpha in the divisions: f32(1 - 0.999) as the reference has
 // it, not 1.0f - 0.999f
 constexpr float kOneMinusAlphaFloor = 0.001f;
 
-// batch attributes [256][6 + CH] + warp partials [8][256][6 + CH]
-template <int CH>
-constexpr size_t kSmemBytes = sizeof(float) * (1 + kWarps) * kPixels * (6 + CH);
+// One step of the halving below: the lane keeps v[0, kHalf) or v[kHalf,
+// 2 kHalf) by its lane bit kHalf * 2, sends the other half to the lane
+// across that bit, and adds what it receives into v[0, kHalf). A template
+// step, so that every index is a constant and v stays in registers.
+template <int kHalf>
+__device__ __forceinline__ void halve(float (&v)[kPad], int lane) {
+  const bool upper = lane & (2 * kHalf);
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    const float send = upper ? v[j] : v[j + kHalf];
+    const float keep = upper ? v[j + kHalf] : v[j];
+    v[j] = keep + __shfl_xor_sync(kFull, send, 2 * kHalf);
+  }
+}
+
+// The warp sum of each of the 16 values by recursive halving (8 + 4 + 2 + 1
+// shuffles); a last shuffle adds the two halves of the lane pair that then
+// hold the same value. Lanes 2i and 2i + 1 return the sum of v[i]. The
+// pairing is fixed, so the sum is too.
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[kPad],
+                                                    int lane) {
+  static_assert(kPad == 16, "four halving steps");
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0] + __shfl_xor_sync(kFull, v[0], 1);
+}
 
 template <int CH>
-__global__ void __launch_bounds__(kPixels) composite_bwd_kernel(
-    const float* __restrict__ xys,        // (N, 2)
-    const float* __restrict__ conics,     // (N, 3)
-    const float* __restrict__ opacities,  // (N,)
-    const float* __restrict__ colors,     // (N, CH)
+__global__ void __launch_bounds__(kThreads, kMinBlocks) composite_bwd_kernel(
+    const float4* __restrict__ records,     // (N, 3) packed records
     int n,
     const int32_t* __restrict__ gids,       // (cap,) sorted by (tile, depth)
     const int32_t* __restrict__ tile_bins,  // (T, 2) [start, end)
@@ -84,142 +127,162 @@ __global__ void __launch_bounds__(kPixels) composite_bwd_kernel(
     float* __restrict__ gout)             // (cap, 6 + CH), zeroed
 {
   constexpr int kOut = 6 + CH;
-  extern __shared__ float smem[];
-  float* s_attr = smem;                   // [kPixels][kOut]
-  float* s_part = smem + kPixels * kOut;  // [kWarps][kPixels][kOut]
+  static_assert(kOut <= kPad, "the butterfly sums 16 values");
+  __shared__ float4 s_rec[2][kBatch * gstk::kRecordChunks];
+  __shared__ float s_part[kWarps * kBatch * kOut];  // [warp][entry][value]
+  __shared__ unsigned long long s_kept[kWarps];     // entries with a partial
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int warp = p >> 5;
   const int lane = p & 31;
-  const float px = static_cast<float>((tile % tiles_x) * kBlock + p % kBlock);
-  const float py = static_cast<float>((tile / tiles_x) * kBlock + p / kBlock);
+  // warp w holds rows 4w .. 4w + 3 of the tile; a lane two pixels of one
+  // column, rows 4w + 2 (lane / 16) and the row below
+  static_assert(kPerThread == 2 && kWarps * 4 == kBlock, "4 rows a warp");
+  const int col = lane & (kBlock - 1);
+  const int row0 = 4 * warp + 2 * (lane >> 4);
+  const float px = static_cast<float>((tile % tiles_x) * kBlock + col);
+  float py[kPerThread];
+  float g[kPerThread][CH];
+  float g_dot_acc[kPerThread], gt_tf[kPerThread];
+  float t[kPerThread], g_prefix[kPerThread];
+  bool done[kPerThread];
+#pragma unroll
+  for (int s = 0; s < kPerThread; ++s) {
+    py[s] = static_cast<float>((tile / tiles_x) * kBlock + row0 + s);
+    const size_t pix = (size_t)tile * kPixels + (row0 + s) * kBlock + col;
+    g_dot_acc[s] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      g[s][c] = g_acc[pix * CH + c];
+      g_dot_acc[s] += g[s][c] * acc[pix * CH + c];
+    }
+    gt_tf[s] = g_final_t[pix] * final_t[pix];
+    t[s] = 1.0f;
+    g_prefix[s] = 0.0f;
+    done[s] = false;
+  }
   const int start = tile_bins[2 * tile];
   const int end = tile_bins[2 * tile + 1];
 
-  const size_t pix = (size_t)tile * kPixels + p;
-  float g[CH];
-  float g_dot_acc = 0.0f;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    g[c] = g_acc[pix * CH + c];
-    g_dot_acc += g[c] * acc[pix * CH + c];
+  const bool stager = p < kBatch;
+  if (stager) {
+    gstk::stage_record(s_rec[0], records,
+                       gstk::batch_gid(gids, start, p, end, n), n, p);
   }
-  const float gt_tf = g_final_t[pix] * final_t[pix];
-
-  float t = 1.0f;
-  float g_prefix = 0.0f;
-  bool done = false;
-
-  for (int b0 = start; b0 < end; b0 += kPixels) {
-    // also the barrier that keeps the previous batch and its partials
-    // until every thread has used them
-    if (__syncthreads_count(done) == kPixels) break;
-    const int idx = b0 + p;
-    const int gid = idx < end ? gids[idx] : n;
-    float* row = s_attr + p * kOut;
-    if (gid >= 0 && gid < n) {
-      row[0] = xys[2 * gid];
-      row[1] = xys[2 * gid + 1];
-      row[2] = conics[3 * gid];
-      row[3] = conics[3 * gid + 1];
-      row[4] = conics[3 * gid + 2];
-      row[5] = opacities[gid];
-#pragma unroll
-      for (int c = 0; c < CH; ++c) row[6 + c] = colors[(size_t)gid * CH + c];
-    } else {  // alpha 0 < 1/255: skipped (not reached within range)
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) row[i] = 0.0f;
+  gstk::cp_async_commit();
+  int gid_next = stager ? gstk::batch_gid(gids, start + kBatch, p, end, n) : n;
+  for (int b0 = start, i = 0; b0 < end; b0 += kBatch, ++i) {
+    gstk::cp_async_wait<0>();
+    // batch i has landed for every thread, and every thread is done with
+    // batch i - 1 and its partials; batch i + 1 takes that buffer
+    if (__syncthreads_count(done[0] && done[1]) == kThreads) break;
+    if (stager && b0 + kBatch < end) {
+      gstk::stage_record(s_rec[(i + 1) & 1], records, gid_next, n, p);
+      gid_next = gstk::batch_gid(gids, b0 + 2 * kBatch, p, end, n);
     }
-    __syncthreads();
-    const int count = min(kPixels, end - b0);
+    gstk::cp_async_commit();
+    const float* batch = reinterpret_cast<const float*>(s_rec[i & 1]);
+    const int count = min(kBatch, end - b0);
+    unsigned long long kept_entries = 0;  // warp-uniform
     for (int k = 0; k < count; ++k) {
-      const float* e_row = s_attr + k * kOut;
-      float v[kOut];
+      const float* r = batch + k * gstk::kRecordFloats;
+      const float dx = r[gstk::kX] - px;
+      // the decisions of composite_common.cuh in K1's order, inline
+      bool kept[kPerThread];
+      float dy[kPerThread], e[kPerThread], raw[kPerThread],
+          alpha[kPerThread], t_prev[kPerThread];
 #pragma unroll
-      for (int i = 0; i < kOut; ++i) v[i] = 0.0f;
-      bool kept = false;
-      if (!done) {
-        const float a = e_row[2], b = e_row[3], c = e_row[4];
-        const float dx = e_row[0] - px;
-        const float dy = e_row[1] - py;
-        float e, raw, alpha, next_t;
-        const gstk::Decision d =
-            gstk::decide(a, b, c, e_row[5], dx, dy, t, e, raw, alpha, next_t);
-        if (d == gstk::kStop) {
-          done = true;
-        } else if (d == gstk::kKeep) {
-          kept = true;
-          float g_dot_col = 0.0f;
-#pragma unroll
-          for (int ch = 0; ch < CH; ++ch) g_dot_col += g[ch] * e_row[6 + ch];
-          const float w = t * alpha;
-          const float prefix_incl = g_prefix + w * g_dot_col;
-          const float inv_one_m = 1.0f / fmaxf(1.0f - alpha, kOneMinusAlphaFloor);
-          const float v_alpha = t * g_dot_col -
-                                (g_dot_acc - prefix_incl) * inv_one_m -
-                                gt_tf * inv_one_m;
-          if (!(raw > gstk::kAlphaClamp)) {  // a clamped alpha passes none
-            const float v_sigma = -alpha * v_alpha;
-            v[0] = (a * dx + b * dy) * v_sigma;
-            v[1] = (c * dy + b * dx) * v_sigma;
-            v[2] = 0.5f * dx * dx * v_sigma;
-            v[3] = dx * dy * v_sigma;
-            v[4] = 0.5f * dy * dy * v_sigma;
-            v[5] = e * v_alpha;
-          }
-#pragma unroll
-          for (int ch = 0; ch < CH; ++ch) v[6 + ch] = w * g[ch];
-          g_prefix = prefix_incl;
-          t = next_t;
+      for (int s = 0; s < kPerThread; ++s) {
+        kept[s] = false;
+        if (done[s]) continue;
+        dy[s] = r[gstk::kY] - py[s];
+        const float sigma =
+            gstk::sigma_of(r[gstk::kA], r[gstk::kB], r[gstk::kC], dx, dy[s]);
+        if (sigma < 0.0f) continue;
+        e[s] = expf(-sigma);
+        raw[s] = r[gstk::kOp] * e[s];
+        alpha[s] = gstk::clamped_alpha(raw[s]);
+        if (alpha[s] < gstk::kAlphaCutoff) continue;
+        float next_t;
+        if (gstk::stops(t[s], alpha[s], next_t)) {
+          done[s] = true;
+        } else {
+          kept[s] = true;
+          t_prev[s] = t[s];
+          t[s] = next_t;
         }
       }
-      if (__any_sync(kFull, kept)) {
+      if (!__any_sync(kFull, kept[0] || kept[1])) {
+        // the rest of the batch too, once the warp's pixels have all stopped
+        if (__all_sync(kFull, done[0] && done[1])) break;
+        continue;
+      }
+      const float a = r[gstk::kA], b = r[gstk::kB], c = r[gstk::kC];
+      float v[kPad];
 #pragma unroll
-        for (int i = 0; i < kOut; ++i) {
+      for (int j = 0; j < kPad; ++j) v[j] = 0.0f;
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            v[i] += __shfl_down_sync(kFull, v[i], off);
-          }
+      for (int s = 0; s < kPerThread; ++s) {
+        if (!kept[s]) continue;
+        float g_dot_col = 0.0f;
+#pragma unroll
+        for (int ch = 0; ch < CH; ++ch) g_dot_col += g[s][ch] * r[gstk::kCol + ch];
+        const float w = t_prev[s] * alpha[s];
+        const float prefix_incl = g_prefix[s] + w * g_dot_col;
+        // __frcp_rn is 1.0f / x, rounded to nearest as the division is
+        const float inv_one_m =
+            __frcp_rn(fmaxf(1.0f - alpha[s], kOneMinusAlphaFloor));
+        const float v_alpha = t_prev[s] * g_dot_col -
+                              (g_dot_acc[s] - prefix_incl) * inv_one_m -
+                              gt_tf[s] * inv_one_m;
+        if (!(raw[s] > gstk::kAlphaClamp)) {  // a clamped alpha passes none
+          const float v_sigma = -alpha[s] * v_alpha;
+          const float y = dy[s];
+          v[0] += (a * dx + b * y) * v_sigma;
+          v[1] += (c * y + b * dx) * v_sigma;
+          v[2] += 0.5f * dx * dx * v_sigma;
+          v[3] += dx * y * v_sigma;
+          v[4] += 0.5f * y * y * v_sigma;
+          v[5] += e[s] * v_alpha;
         }
-      }
-      if (lane == 0) {
-        float* part = s_part + ((size_t)warp * kPixels + k) * kOut;
 #pragma unroll
-        for (int i = 0; i < kOut; ++i) part[i] = v[i];
+        for (int ch = 0; ch < CH; ++ch) v[6 + ch] += w * g[s][ch];
+        g_prefix[s] = prefix_incl;
       }
+      const float sum = warp_transpose_sum(v, lane);
+      const int value = lane >> 1;
+      if (!(lane & 1) && value < kOut) {
+        s_part[(warp * kBatch + k) * kOut + value] = sum;
+      }
+      kept_entries |= 1ull << k;
     }
+    if (lane == 0) s_kept[warp] = kept_entries;
     __syncthreads();
-    if (p < count) {
-      float* dst = gout + (size_t)(b0 + p) * kOut;
+    // the batch's rows are count * kOut consecutive floats of gout
+    float* rows = gout + (size_t)b0 * kOut;
+    for (int f = p; f < count * kOut; f += kThreads) {
+      const int entry = f / kOut;
+      float s = 0.0f;
 #pragma unroll
-      for (int i = 0; i < kOut; ++i) {
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          s += s_part[((size_t)w * kPixels + p) * kOut + i];
-        }
-        dst[i] = s;
+      for (int w = 0; w < kWarps; ++w) {
+        if ((s_kept[w] >> entry) & 1) s += s_part[w * kBatch * kOut + f];
       }
+      rows[f] = s;
     }
   }
+  // an empty range never waited for its first batch's (zero-filled) copies:
+  // none may land after the CTA has exited
+  gstk::cp_async_wait<0>();
 }
 
 template <int CH>
-cudaError_t launch(const void* xys, const void* conics, const void* opacities,
-                   const void* colors, int n, const void* gids,
+cudaError_t launch(const void* records, int n, const void* gids,
                    const void* tile_bins, int num_tiles, int tiles_x,
                    const void* acc, const void* final_t, const void* g_acc,
                    const void* g_final_t, void* gout, cudaStream_t stream) {
-  const size_t smem = kSmemBytes<CH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      composite_bwd_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  composite_bwd_kernel<CH><<<num_tiles, kPixels, smem, stream>>>(
-      static_cast<const float*>(xys), static_cast<const float*>(conics),
-      static_cast<const float*>(opacities), static_cast<const float*>(colors),
-      n, static_cast<const int32_t*>(gids),
+  composite_bwd_kernel<CH><<<num_tiles, kThreads, 0, stream>>>(
+      static_cast<const float4*>(records), n, static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(tile_bins), tiles_x,
       static_cast<const float*>(acc), static_cast<const float*>(final_t),
       static_cast<const float*>(g_acc), static_cast<const float*>(g_final_t),
@@ -231,11 +294,9 @@ cudaError_t launch(const void* xys, const void* conics, const void* opacities,
 
 // Channel counts this kernel is instantiated for; the wrapper raises on
 // any other.
-extern "C" int gstk_composite_bwd(const void* xys, const void* conics,
-                                  const void* opacities, const void* colors,
-                                  int ch, int n, const void* gids,
-                                  const void* tile_bins, int num_tiles,
-                                  int tiles_x, const void* acc,
+extern "C" int gstk_composite_bwd(const void* records, int ch, int n,
+                                  const void* gids, const void* tile_bins,
+                                  int num_tiles, int tiles_x, const void* acc,
                                   const void* final_t, const void* g_acc,
                                   const void* g_final_t, void* gout,
                                   void* stream) {
@@ -243,15 +304,27 @@ extern "C" int gstk_composite_bwd(const void* xys, const void* conics,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ch) {
     case 3:
-      return static_cast<int>(launch<3>(xys, conics, opacities, colors, n,
-                                        gids, tile_bins, num_tiles, tiles_x,
-                                        acc, final_t, g_acc, g_final_t, gout,
-                                        s));
+      return static_cast<int>(launch<3>(records, n, gids, tile_bins, num_tiles,
+                                        tiles_x, acc, final_t, g_acc,
+                                        g_final_t, gout, s));
     case 4:
-      return static_cast<int>(launch<4>(xys, conics, opacities, colors, n,
-                                        gids, tile_bins, num_tiles, tiles_x,
-                                        acc, final_t, g_acc, g_final_t, gout,
-                                        s));
+      return static_cast<int>(launch<4>(records, n, gids, tile_bins, num_tiles,
+                                        tiles_x, acc, final_t, g_acc,
+                                        g_final_t, gout, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Resident CTAs of K2 per SM at `ch` channels, into *blocks.
+extern "C" int gstk_composite_bwd_occupancy(int ch, int* blocks) {
+  switch (ch) {
+    case 3:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, composite_bwd_kernel<3>, kThreads, 0));
+    case 4:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, composite_bwd_kernel<4>, kThreads, 0));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

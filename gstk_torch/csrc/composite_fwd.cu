@@ -12,20 +12,27 @@
 // final transmittance T of every pixel.
 //
 // Design: one CTA of 256 threads per tile, one thread per pixel. The tile's
-// range is walked in batches of 256 entries; each batch is gathered
-// cooperatively into shared memory straight from the per-Gaussian arrays
-// (gid -> xy, conic, opacity, CH colors), then every pixel composites the
-// batch sequentially in f32. Every keep / skip / stop decision comes from
-// composite_common.cuh, which the backward kernel K2 shares. The tile exits
-// early once every pixel is done (__syncthreads_count). Entries past `end`
-// and sentinel ids (>= N) are never read.
+// range is walked in batches of 256 entries. Thread e stages entry e of a
+// batch: the Gaussian's 48-B packed record (composite_common.cuh), three
+// 16-B cp.async into a double buffer, so batch i + 1 is in flight while
+// batch i is composited; the id of the batch after that is loaded into a
+// register one batch ahead. One barrier per batch both publishes the
+// landed batch and frees the buffer of the one before. Every pixel then
+// composites the batch sequentially in f32; a pixel that stops leaves the
+// loop, and a warp whose pixels have all stopped waits at the next barrier.
+// Every keep / skip / stop decision comes from composite_common.cuh, which
+// the backward kernel K2 shares. The tile exits early once every pixel is
+// done (__syncthreads_count). Sentinel ids (>= N) get a zero record.
 //
-// Bound: per intersection the kernel reads the gid and 4 (6 + CH) B of
-// attributes (40 B at CH = 4), and writes T * 256 * (CH + 1) * 4 B; the work
-// is about 20 FLOP and one exp per (pixel, entry) pair processed. This first
-// design does nothing about either bound yet: gathers are uncoalesced,
-// batches are not double-buffered, and a warp's pixels that finish early
-// idle until the whole batch is done.
+// Bound: operations. Per (pixel, entry) pair evaluated, about 20 FLOP and
+// one exp (85 M pairs at the render point, 0.027 ms at 67 TFLOP/s); per
+// intersection the kernel reads the id and a 48-B record, and it writes
+// T * 256 * (CH + 1) * 4 B. What the design does about it: the staging
+// costs each thread three asynchronous copies per batch, overlapped with
+// the compositing of the batch before, and one barrier. The per-pair
+// arithmetic takes the header's steps inline, in its order: x, y, a, b and
+// c, op, col0, col1 come as two 16-B shared loads, so the opacity is loaded
+// before sigma's test but used only after it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,12 +44,11 @@ namespace {
 using gstk::kBlock;
 using gstk::kPixels;
 
+constexpr int kBatch = kPixels;  // entries per staged batch, one per thread
+
 template <int CH>
 __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
-    const float* __restrict__ xys,        // (N, 2)
-    const float* __restrict__ conics,     // (N, 3)
-    const float* __restrict__ opacities,  // (N,)
-    const float* __restrict__ colors,     // (N, CH)
+    const float4* __restrict__ records,     // (N, 3) packed records
     int n,
     const int32_t* __restrict__ gids,       // (cap,) sorted by (tile, depth)
     const int32_t* __restrict__ tile_bins,  // (T, 2) [start, end)
@@ -50,10 +56,7 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
     float* __restrict__ acc,      // (T, 256, CH)
     float* __restrict__ final_t)  // (T, 256)
 {
-  __shared__ float s_xy[kPixels][2];
-  __shared__ float s_conic[kPixels][3];
-  __shared__ float s_op[kPixels];
-  __shared__ float s_col[kPixels][CH];
+  __shared__ float4 s_rec[2][kBatch * gstk::kRecordChunks];
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -68,35 +71,31 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
 #pragma unroll
   for (int c = 0; c < CH; ++c) out[c] = 0.0f;
 
-  for (int b0 = start; b0 < end; b0 += kPixels) {
-    // also the barrier that keeps the previous batch until all have used it
+  gstk::stage_record(s_rec[0], records, gstk::batch_gid(gids, start, p, end, n),
+                     n, p);
+  gstk::cp_async_commit();
+  int gid_next = gstk::batch_gid(gids, start + kBatch, p, end, n);
+  for (int b0 = start, i = 0; b0 < end; b0 += kBatch, ++i) {
+    gstk::cp_async_wait<0>();
+    // batch i has landed for every thread, and every thread is done with
+    // batch i - 1, whose buffer takes batch i + 1
     if (__syncthreads_count(done) == kPixels) break;
-    const int idx = b0 + p;
-    const int g = idx < end ? gids[idx] : n;
-    if (g >= 0 && g < n) {
-      s_xy[p][0] = xys[2 * g];
-      s_xy[p][1] = xys[2 * g + 1];
-      s_conic[p][0] = conics[3 * g];
-      s_conic[p][1] = conics[3 * g + 1];
-      s_conic[p][2] = conics[3 * g + 2];
-      s_op[p] = opacities[g];
-#pragma unroll
-      for (int c = 0; c < CH; ++c) s_col[p][c] = colors[(size_t)g * CH + c];
-    } else {  // alpha 0 < 1/255: skipped (not reached within range)
-      s_xy[p][0] = s_xy[p][1] = 0.0f;
-      s_conic[p][0] = s_conic[p][1] = s_conic[p][2] = 0.0f;
-      s_op[p] = 0.0f;
+    if (b0 + kBatch < end) {
+      gstk::stage_record(s_rec[(i + 1) & 1], records, gid_next, n, p);
+      gid_next = gstk::batch_gid(gids, b0 + 2 * kBatch, p, end, n);
     }
-    __syncthreads();
-    const int count = min(kPixels, end - b0);
+    gstk::cp_async_commit();
+    const float* batch = reinterpret_cast<const float*>(s_rec[i & 1]);
+    const int count = min(kBatch, end - b0);
     for (int k = 0; k < count && !done; ++k) {
-      // gstk::decide's steps, inline: s_op is read only past sigma's test
-      const float dx = s_xy[k][0] - px;
-      const float dy = s_xy[k][1] - py;
+      // the decisions of composite_common.cuh, inline
+      const float* r = batch + k * gstk::kRecordFloats;
+      const float dx = r[gstk::kX] - px;
+      const float dy = r[gstk::kY] - py;
       const float sigma =
-          gstk::sigma_of(s_conic[k][0], s_conic[k][1], s_conic[k][2], dx, dy);
+          gstk::sigma_of(r[gstk::kA], r[gstk::kB], r[gstk::kC], dx, dy);
       if (sigma < 0.0f) continue;
-      const float alpha = gstk::clamped_alpha(s_op[k] * expf(-sigma));
+      const float alpha = gstk::clamped_alpha(r[gstk::kOp] * expf(-sigma));
       if (alpha < gstk::kAlphaCutoff) continue;
       float next_t;
       if (gstk::stops(t, alpha, next_t)) {
@@ -105,10 +104,13 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
       }
       const float w = alpha * t;
 #pragma unroll
-      for (int c = 0; c < CH; ++c) out[c] += w * s_col[k][c];
+      for (int c = 0; c < CH; ++c) out[c] += w * r[gstk::kCol + c];
       t = next_t;
     }
   }
+  // an empty range never waited for its first batch's (zero-filled) copies:
+  // none may land after the CTA has exited
+  gstk::cp_async_wait<0>();
   float* acc_px = acc + ((size_t)tile * kPixels + p) * CH;
 #pragma unroll
   for (int c = 0; c < CH; ++c) acc_px[c] = out[c];
@@ -116,14 +118,11 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
 }
 
 template <int CH>
-cudaError_t launch(const void* xys, const void* conics, const void* opacities,
-                   const void* colors, int n, const void* gids,
+cudaError_t launch(const void* records, int n, const void* gids,
                    const void* tile_bins, int num_tiles, int tiles_x, void* acc,
                    void* final_t, cudaStream_t stream) {
   composite_fwd_kernel<CH><<<num_tiles, kPixels, 0, stream>>>(
-      static_cast<const float*>(xys), static_cast<const float*>(conics),
-      static_cast<const float*>(opacities), static_cast<const float*>(colors),
-      n, static_cast<const int32_t*>(gids),
+      static_cast<const float4*>(records), n, static_cast<const int32_t*>(gids),
       static_cast<const int32_t*>(tile_bins), tiles_x,
       static_cast<float*>(acc), static_cast<float*>(final_t));
   return cudaGetLastError();
@@ -133,23 +132,33 @@ cudaError_t launch(const void* xys, const void* conics, const void* opacities,
 
 // Channel counts this kernel is instantiated for; the wrapper raises on
 // any other.
-extern "C" int gstk_composite_fwd(const void* xys, const void* conics,
-                                  const void* opacities, const void* colors,
-                                  int ch, int n, const void* gids,
-                                  const void* tile_bins, int num_tiles,
-                                  int tiles_x, void* acc, void* final_t,
-                                  void* stream) {
+extern "C" int gstk_composite_fwd(const void* records, int ch, int n,
+                                  const void* gids, const void* tile_bins,
+                                  int num_tiles, int tiles_x, void* acc,
+                                  void* final_t, void* stream) {
   if (num_tiles <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ch) {
     case 3:
-      return static_cast<int>(launch<3>(xys, conics, opacities, colors, n,
-                                        gids, tile_bins, num_tiles, tiles_x,
-                                        acc, final_t, s));
+      return static_cast<int>(launch<3>(records, n, gids, tile_bins, num_tiles,
+                                        tiles_x, acc, final_t, s));
     case 4:
-      return static_cast<int>(launch<4>(xys, conics, opacities, colors, n,
-                                        gids, tile_bins, num_tiles, tiles_x,
-                                        acc, final_t, s));
+      return static_cast<int>(launch<4>(records, n, gids, tile_bins, num_tiles,
+                                        tiles_x, acc, final_t, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Resident CTAs of K1 per SM at `ch` channels, into *blocks.
+extern "C" int gstk_composite_fwd_occupancy(int ch, int* blocks) {
+  switch (ch) {
+    case 3:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, composite_fwd_kernel<3>, kPixels, 0));
+    case 4:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, composite_fwd_kernel<4>, kPixels, 0));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,15 +17,16 @@ per-Gaussian sums are :func:`gstk_torch.ops.segment_kernel.segment_sum_sorted`'s
 :func:`composite_tiles_fwd` and :func:`composite_tiles_bwd` launch the CUDA
 kernels (``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``) for CUDA
 tensors and run their plain twins only for CPU tensors. The kernels gather
-attributes by Gaussian id straight from the per-Gaussian arrays; the TPU's
-packed 128-lane attribute tables, bf16 splits, side slabs and padded tile
-ranges are not carried over.
+attributes by Gaussian id from one packed 48-B record per Gaussian
+(:func:`pack_records`), which a caller that runs both kernels builds once and
+passes to both; the TPU's packed 128-lane attribute tables, bf16 splits,
+side slabs and padded tile ranges are not carried over.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,16 +37,62 @@ ALPHA_CUTOFF = 1.0 / 255.0
 T_CUTOFF = 1e-4
 KERNEL_BLOCK_WIDTH = 16
 KERNEL_CHANNELS = (3, 4)  # the instantiations of csrc/composite_{fwd,bwd}.cu
+# floats per Gaussian in the kernels' packed record (csrc/composite_common.cuh)
+RECORD_WIDTH = 12
 
+# records, ch, n, gids, tile_bins, num_tiles, tiles_x, acc, final_t, stream
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
 ]
 # the forward's arguments with acc, final_t, g_acc, g_final_t and gout in
 # place of its two outputs
-_BWD_ARGTYPES = _ARGTYPES[:10] + [ctypes.c_void_p] * 6
+_BWD_ARGTYPES = _ARGTYPES[:7] + [ctypes.c_void_p] * 6
+
+
+def pack_records(xys, conics, opacities, colors) -> torch.Tensor:
+    """The kernels' per-Gaussian record, (N, 12) float32 on the inputs'
+    device: ``[x, y, a, b | c, op, col0, col1 | col2, col3, 0, 0]``, 48 B or
+    three 16-B chunks a Gaussian, colors past ch zero. Takes ch in
+    ``KERNEL_CHANNELS``."""
+    n, ch = colors.shape
+    if ch not in KERNEL_CHANNELS:
+        raise ValueError(f"pack_records: the kernels take ch in "
+                         f"{KERNEL_CHANNELS}; got ch {ch}")
+    pad = colors.new_zeros((n, RECORD_WIDTH - 6 - ch))
+    return torch.cat([xys, conics, opacities[:, None], colors, pad], dim=1)
+
+
+def _kernel_records(records, xys, conics, opacities, colors, name):
+    """``records`` checked against the attributes, or built from them when
+    None."""
+    if records is None:
+        return pack_records(xys, conics, opacities, colors)
+    if (tuple(records.shape) != (xys.shape[0], RECORD_WIDTH)
+            or records.dtype != torch.float32 or records.device != xys.device
+            or not records.is_contiguous() or records.data_ptr() % 16):
+        raise ValueError(
+            f"{name}: records must be contiguous, 16-B aligned float32 "
+            f"({xys.shape[0]}, {RECORD_WIDTH}) on {xys.device} (pack_records); "
+            f"got {records.dtype} {tuple(records.shape)} on {records.device}"
+        )
+    return records
+
+
+def resident_ctas(kernel: str, ch: int) -> int:
+    """CTAs of kernel ``"fwd"`` (K1) or ``"bwd"`` (K2) at ``ch`` channels
+    that fit on one SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    with the kernel's registers and shared memory)."""
+    if kernel not in ("fwd", "bwd") or ch not in KERNEL_CHANNELS:
+        raise ValueError(f"resident_ctas: kernel fwd or bwd, ch in "
+                         f"{KERNEL_CHANNELS}; got {kernel!r}, {ch}")
+    fn = _build.kernel_function(f"gstk_composite_{kernel}_occupancy",
+                                [ctypes.c_int, ctypes.c_void_p])
+    blocks = ctypes.c_int(0)
+    _build.check(f"resident_ctas({kernel!r}, {ch})",
+                 fn(ch, ctypes.addressof(blocks)))
+    return blocks.value
 
 
 def _tile_pixel_coords(
@@ -271,7 +318,8 @@ def composite_tiles_bwd_plain(
 
 def composite_tiles_fwd(
     xys, conics, opacities, colors, gaussian_ids, tile_bins,
-    tile_bounds: Tuple[int, int], block_width: int = 16,
+    tile_bounds: Tuple[int, int], block_width: int = 16, *,
+    records: Optional[torch.Tensor] = None,
 ):
     """Composite every tile: kernel K1 on CUDA tensors, the plain twin on
     CPU tensors.
@@ -279,7 +327,9 @@ def composite_tiles_fwd(
     xys (N,2), conics (N,3), opacities (N,), colors (N,ch) float32;
     gaussian_ids (cap,) int32 sorted by (tile, depth) with sentinel N;
     tile_bins (T,2) int32 ranges. Returns acc (T,256,ch), final_t (T,256).
-    The kernel takes 16x16 tiles and ch in ``KERNEL_CHANNELS``."""
+    The kernel takes 16x16 tiles and ch in ``KERNEL_CHANNELS``, and reads
+    the attributes from ``records`` (:func:`pack_records` of the same four
+    arrays), built here when None; the twin ignores it."""
     _check(xys, conics, opacities, colors, gaussian_ids, tile_bins,
            tile_bounds)
     device = xys.device
@@ -300,16 +350,16 @@ def composite_tiles_fwd(
         )
     num_tiles = tile_bounds[0] * tile_bounds[1]
     p = block_width * block_width
-    args = [x.contiguous() for x in (xys, conics, opacities, colors,
-                                     gaussian_ids, tile_bins)]
+    records = _kernel_records(records, xys, conics, opacities, colors,
+                              "composite_tiles_fwd")
+    gids, bins = gaussian_ids.contiguous(), tile_bins.contiguous()
     acc = torch.empty((num_tiles, p, ch), dtype=torch.float32, device=device)
     final_t = torch.empty((num_tiles, p), dtype=torch.float32, device=device)
     fn = _build.kernel_function("gstk_composite_fwd", _ARGTYPES)
     with torch.cuda.device(device):
         err = fn(
-            args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-            args[3].data_ptr(), ch, xys.shape[0], args[4].data_ptr(),
-            args[5].data_ptr(), num_tiles, tile_bounds[0],
+            records.data_ptr(), ch, xys.shape[0], gids.data_ptr(),
+            bins.data_ptr(), num_tiles, tile_bounds[0],
             acc.data_ptr(), final_t.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -323,7 +373,8 @@ composite_tiles_fwd.launches = 0
 
 def composite_tiles_bwd(
     xys, conics, opacities, colors, gaussian_ids, tile_bins, acc, final_t,
-    g_acc, g_final_t, tile_bounds: Tuple[int, int], block_width: int = 16,
+    g_acc, g_final_t, tile_bounds: Tuple[int, int], block_width: int = 16, *,
+    records: Optional[torch.Tensor] = None,
 ):
     """Per-intersection compositing gradients: kernel K2 on CUDA tensors,
     the plain twin on CPU tensors.
@@ -333,7 +384,8 @@ def composite_tiles_bwd(
     ``gout (cap, 6+ch)``: the gradients ``[x, y, a, b, c, opacity,
     colors...]`` of each sorted entry summed over its tile's pixels, zero
     where no pixel kept the entry. The kernel takes 16x16 tiles and ch in
-    ``KERNEL_CHANNELS``."""
+    ``KERNEL_CHANNELS``, and ``records`` as :func:`composite_tiles_fwd`
+    does."""
     _check(xys, conics, opacities, colors, gaussian_ids, tile_bins,
            tile_bounds, name="composite_tiles_bwd")
     _check_planes(colors, tile_bounds, block_width, acc, final_t, g_acc,
@@ -354,19 +406,19 @@ def composite_tiles_bwd(
             f"block_width {block_width}, ch {ch}"
         )
     num_tiles = tile_bounds[0] * tile_bounds[1]
-    args = [x.contiguous() for x in (xys, conics, opacities, colors,
-                                     gaussian_ids, tile_bins, acc, final_t,
+    records = _kernel_records(records, xys, conics, opacities, colors,
+                              "composite_tiles_bwd")
+    args = [x.contiguous() for x in (gaussian_ids, tile_bins, acc, final_t,
                                      g_acc, g_final_t)]
     gout = torch.zeros((gaussian_ids.shape[0], 6 + ch), dtype=torch.float32,
                        device=device)
     fn = _build.kernel_function("gstk_composite_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(device):
         err = fn(
-            args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-            args[3].data_ptr(), ch, xys.shape[0], args[4].data_ptr(),
-            args[5].data_ptr(), num_tiles, tile_bounds[0],
-            args[6].data_ptr(), args[7].data_ptr(), args[8].data_ptr(),
-            args[9].data_ptr(), gout.data_ptr(),
+            records.data_ptr(), ch, xys.shape[0], args[0].data_ptr(),
+            args[1].data_ptr(), num_tiles, tile_bounds[0],
+            args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
+            args[5].data_ptr(), gout.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check("composite_tiles_bwd", err)

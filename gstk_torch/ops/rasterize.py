@@ -32,6 +32,7 @@ from gstk_torch.ops.raster_cuda import (
     composite_tiles_bwd_plain,
     composite_tiles_fwd,
     composite_tiles_fwd_plain,
+    pack_records,
 )
 from gstk_torch.ops.segment_kernel import (
     segment_sum_sorted,
@@ -165,20 +166,25 @@ class _CompositeTiles(torch.autograd.Function):
     Forward: kernel K1 (or its twin). Backward: K2's per-intersection
     gradients, gathered into expansion order by ``positions`` and summed per
     Gaussian by K4 over the segments ``hi = min(cumsum(counts), cap)``.
-    ``positions`` is None for a forward-only rasterize, whose backward
-    raises."""
+    The kernels read one packed record per Gaussian, built once here and
+    kept for K2. ``positions`` is None for a forward-only rasterize, whose
+    backward raises."""
 
     @staticmethod
     def forward(ctx, xys, conics, colors, opacities, gaussian_ids, tile_bins,
                 positions, counts, tile_bounds, block_width, plain, chunk):
         args = (xys, conics, opacities, colors, gaussian_ids, tile_bins,
                 tile_bounds, block_width)
+        records = None
         if plain:
             acc, final_t, _ = composite_tiles_fwd_plain(*args, chunk=chunk)
         else:
-            acc, final_t = composite_tiles_fwd(*args)
+            if xys.is_cuda:
+                records = pack_records(xys, conics, opacities, colors)
+            acc, final_t = composite_tiles_fwd(*args, records=records)
         ctx.save_for_backward(xys, conics, colors, opacities, gaussian_ids,
-                              tile_bins, positions, counts, acc, final_t)
+                              tile_bins, positions, counts, acc, final_t,
+                              records)
         ctx.geometry = (tile_bounds, block_width, plain, chunk)
         return acc, final_t
 
@@ -186,7 +192,7 @@ class _CompositeTiles(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_acc, g_final_t):
         (xys, conics, colors, opacities, gaussian_ids, tile_bins, positions,
-         counts, acc, final_t) = ctx.saved_tensors
+         counts, acc, final_t, records) = ctx.saved_tensors
         tile_bounds, block_width, plain, chunk = ctx.geometry
         if positions is None:
             raise ValueError(FORWARD_ONLY_MESSAGE)
@@ -201,7 +207,7 @@ class _CompositeTiles(torch.autograd.Function):
             gout, _ = composite_tiles_bwd_plain(*args, chunk=chunk)
             segment_sum = segment_sum_sorted_plain
         else:
-            gout = composite_tiles_bwd(*args)
+            gout = composite_tiles_bwd(*args, records=records)
             segment_sum = segment_sum_sorted
         # rows in expansion (Gaussian-major) order: each Gaussian's entries
         # are then one contiguous segment ending at its clipped count cumsum

@@ -12,7 +12,10 @@ K2 (compositing backward) within the gradient tolerance (rtol 5e-3, atol
 1e-4 of each column's largest value); K4 (segment sum) within rtol 1e-5 and
 atol 1e-6 of the segment's sum of magnitudes (the f32 summation error grows
 with it; one segment here sums 40k values). The backward K2 -> gather -> K4
-must give the same bits on every run.
+must give the same bits on every run. K1 and K2 are also held against their
+twins on intersections built by hand (``_tile_case``): a range long enough
+that their batches wrap many times, opaque tiles where pixels stop at
+different entries, sentinel ids inside ranges, and empty ranges.
 """
 
 import numpy as np
@@ -190,6 +193,94 @@ def test_segment_sum_kernel_matches_twin(cuda, case):
     lo = torch.cat([hi.new_zeros(1), torch.clamp(hi, max=npv)[:-1]])
     empty = torch.clamp(hi, max=npv) <= lo
     assert bool((got[:, empty] == 0).all())
+
+
+TILE_CASES = ("long", "opaque", "sentinel", "empty")
+
+
+def _tile_case(cuda, ch, case, seed=0):
+    """Intersections built by hand: each tile's range holds its own
+    Gaussians, centred in or near the tile, in a random depth order.
+
+    long: a tile of 1,500 faint, wide entries that no pixel stops in, so K1's
+    staged batches and K2's partial batches wrap many times; opaque: opacity
+    0.99 and small footprints, so pixels (and warps) stop at different
+    entries; sentinel: every 5th id of a range is a sentinel (N, or past
+    it), which the kernels skip and the twins clamp to the last Gaussian,
+    made transparent and kept out of every range; empty: every other range
+    is empty, the first and the last included."""
+    rng = np.random.default_rng(seed)
+    tiles, lengths = {
+        "long": ((2, 1), [1500, 700]),
+        "opaque": ((3, 2), list(rng.integers(100, 400, 6))),
+        "sentinel": ((3, 2), [300] * 6),
+        "empty": ((4, 2), [0, 200, 0, 150, 0, 0, 300, 0]),
+    }[case]
+    n = sum(lengths) + 1  # the last Gaussian is in no range
+    tile_of = np.repeat(np.arange(len(lengths)), lengths)
+    origin = np.stack([tile_of % tiles[0], tile_of // tiles[0]], 1) * 16.0
+    xys = np.concatenate([origin + rng.uniform(-6, 22, (n - 1, 2)),
+                          np.zeros((1, 2))])
+    if case == "long":
+        ac = rng.uniform(0.001, 0.004, (n, 2))
+        opacities = rng.uniform(0.004, 0.008, n)
+    else:
+        ac = rng.uniform(0.02, 0.3, (n, 2))
+        opacities = (np.full(n, 0.99) if case == "opaque"
+                     else rng.uniform(0.05, 0.6, n))
+    b = rng.uniform(-0.5, 0.5, n) * np.sqrt(ac[:, 0] * ac[:, 1])
+    conics = np.stack([ac[:, 0], b, ac[:, 1]], 1)
+    opacities[-1] = 0.0
+    colors = rng.uniform(0, 1, (n, ch))
+    ends = np.cumsum(lengths)
+    gids = np.concatenate([rng.permutation(np.arange(e - l, e))
+                           for e, l in zip(ends, lengths)] + [np.full(16, n)])
+    if case == "sentinel":
+        gids[: ends[-1]][::5] = n + rng.integers(0, 3, len(gids[: ends[-1]][::5]))
+    bins = np.stack([ends - np.asarray(lengths), ends], 1)
+    t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=cuda)
+    return (t(xys), t(conics), t(opacities), t(colors), t(gids, torch.int32),
+            t(bins, torch.int32), tiles), lengths
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("ch", [3, 4])
+def test_composite_kernel_matches_twin_on_tile_cases(cuda, ch, case):
+    args, lengths = _tile_case(cuda, ch, case)
+    acc, final_t = composite_tiles_fwd(*args)
+    acc_p, final_t_p, visited = composite_tiles_fwd_plain(*args)
+    torch.testing.assert_close(acc, acc_p, **PARITY)
+    torch.testing.assert_close(final_t, final_t_p, **PARITY)
+    per_tile = visited.amax(1).cpu().numpy()
+    if case == "long":
+        assert per_tile[0] == lengths[0] >= 1000  # no pixel stopped
+    if case == "opaque":  # pixels stop, and at different entries
+        assert bool((visited < torch.tensor(lengths, device=cuda)[:, None]).any())
+        assert int(torch.unique(visited).numel()) > 10
+    if case == "empty":
+        empty = np.asarray(lengths) == 0
+        assert (per_tile[empty] == 0).all()
+        assert bool((final_t[torch.from_numpy(empty).to(cuda)] == 1).all())
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("ch", [3, 4])
+def test_composite_bwd_kernel_matches_twin_on_tile_cases(cuda, ch, case):
+    fwd, _ = _tile_case(cuda, ch, case)
+    acc, final_t = composite_tiles_fwd(*fwd)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    args = fwd[:6] + (acc, final_t,
+                      torch.randn(acc.shape, generator=g, device=cuda),
+                      torch.randn(final_t.shape, generator=g, device=cuda),
+                      fwd[6])
+    gout = composite_tiles_bwd(*args)
+    gout_p, kept = composite_tiles_bwd_plain(*args)
+    _close(gout, gout_p, 5e-3, 1e-4 * gout_p.abs().amax(0, keepdim=True))
+    assert int(kept.sum()) > 0
+    untouched = gout_p.abs().sum(1) == 0
+    assert bool((gout[untouched] == 0).all())
+    if case == "sentinel":
+        assert bool((gout[fwd[4] >= fwd[0].shape[0]] == 0).all())
 
 
 def test_backward_is_deterministic(cuda):
