@@ -13,8 +13,9 @@ line:
      104*1024, SH degree 3, 800x800, fx = fy = 1111) from a torch
      generator, written as a gstk_tpu-layout checkpoint;
   4. kernel K3 (segment broadcast) against its plain twin on the scene's
-     tile-count cumsum, 1 and 3 columns, length 2**20, and edge cases:
-     exact equality;
+     tile-count cumsum, 1 and 3 columns, length 2**20, and edge cases (a
+     long tail past the last boundary, a run of equal boundaries wider than
+     a CTA's run): exact equality;
   5. kernel K1 (tile compositing) against its plain twin on the scene's
      intersections at ch = 4: rtol 1e-3 / atol 1e-4;
   6. render path: ``Renderer(checkpoint, device="cuda")`` answers 8 requests
@@ -22,7 +23,8 @@ line:
      just before; request 0 is compared with the same render through the
      plain twins on the card;
   7. K1 and K3 timings at the render shapes (K1 given the packed record, as
-     the render path gives it), and the device time of ``pack_records``;
+     the render path gives it), the device time of ``pack_records`` and of
+     a fill of K3's output (a floor for its bytes);
      kernel times are torch.profiler's mean over the launches it recorded,
      printed with that count and the total over the calls made;
   8. train scene: ``bench.py``'s training point (the phase-3 scene,
@@ -34,6 +36,9 @@ line:
      step's loss (K2 rtol 5e-3 / atol 1e-4 max|g| per column, and again with
      a random final_t cotangent; K4 rtol 1e-5 / atol 1e-6 of each segment's
      sum of magnitudes); K2 -> gather -> K4 twice must be bit-identical;
+     the segment lengths K4 sums (mean, p99, max, empty, longer than a
+     thread sums alone) and the device time of the gather by expansion
+     position and of an attribute-major copy of its result;
      the (tile, warp, entry) triples with a kept pixel, from the plain
      walk, for warps of 32 pixels (one pixel a thread) and
      of 64 (two a thread, as K2's), and the time their warp shuffles
@@ -43,7 +48,8 @@ line:
      from the same state (loss, gradients, updates, statistics, with the
      CPU step test's tolerances); then 2 warm-up and 10 timed steps (host
      clock, synchronized), one traced step (its cat launches listed), and
-     K2 / K4 / ``pack_records`` timings;
+     K2 / K4 / ``pack_records`` timings, with one ``torch.sum`` over the
+     values K4 covers (a floor for its bytes);
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
 bounds), the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -97,6 +103,7 @@ FOCAL = 1111.0
 REQUESTS = 8
 TRAIN_ISECT = 3 << 18  # bench.py's training isect_capacity
 TRAIN_STEPS = 10  # timed, after 2 warm-ups
+K4_SHORT = 32  # the longest segment a thread of K4 sums alone (kShort)
 DEVICE = "cuda"
 PARITY = dict(rtol=1e-3, atol=1e-4)  # gstk_tpu's image parity tolerances
 RTOL_GRAD = 5e-3  # gstk_tpu's gradient parity tolerance
@@ -285,6 +292,12 @@ def run(ckpt_dir: str) -> int:
                             rand_i32(CAPACITY)]),
         "past length": (cum * 3, [ones, rand_i32(CAPACITY)]),
         "zero counts": (torch.cumsum(zeroed.long(), 0).int(), [ones, rand_i32(CAPACITY)]),
+        # the last boundary at about 0.35 of length
+        "long tail": (cum // 2, [ones, rand_i32(CAPACITY)]),
+        # 3000 boundaries at slot 5001: runs of 64 that own no slot
+        "wide window": (torch.sort(torch.cat([
+            cum[:-3000], torch.full((3000,), 5001, dtype=cum.dtype, device=dev),
+        ])).values, [ones, rand_i32(CAPACITY)]),
     }
     for name, (b, ds) in k3_cases.items():
         got = segment_broadcast(b, ds, raster.isect_capacity)
@@ -295,7 +308,8 @@ def run(ckpt_dir: str) -> int:
                 raise AssertionError(f"K3 {name} column {c}: "
                                      f"{int((x != y).sum())} slots differ")
         print(f"K3 {name}: {len(ds)} x {raster.isect_capacity} slots equal, "
-              f"boundaries up to {int(b.max())}")
+              f"boundaries up to {int(b.max())}, "
+              f"{max(raster.isect_capacity - int(b.max()), 0)} slots past the last")
 
     phase("5 K1 composite_tiles_fwd vs plain twin (ch = 4)")
     k1_args = (inputs["xys"], inputs["conics"], inputs["opacities"],
@@ -368,6 +382,9 @@ def run(ckpt_dir: str) -> int:
         # with d = 1 the function is #{i: b[i] <= j}: one searchsorted
         "library_ms": event_ms(lambda: torch.searchsorted(k3_in[0], j, right=True), iters),
     }
+    # a yardstick for K3's bytes: a fill of its 4-B-a-slot output
+    fill_out = torch.empty(length, dtype=torch.int32, device=dev)
+    floors = {"k3_fill": kernel_device_ms(lambda: fill_out.fill_(7), None, iters)}
     k3_bytes = 4 * CAPACITY * 2 + 4 * length  # b and d read, one column written
     k3_ops = length * math.ceil(math.log2(CAPACITY)) * 4  # search steps
     k1_rec = pack_records(*k1_args[:4])
@@ -449,7 +466,7 @@ def run(ckpt_dir: str) -> int:
     gout = composite_tiles_bwd(*bwd_args)
     positions = expansion_positions(t_isect)
     hi = torch.clamp(torch.cumsum(t_counts.long(), 0), max=TRAIN_ISECT)
-    g_et = gout.index_select(0, positions).t().contiguous()
+    g_et = gout.index_select(0, positions).t()  # entry-major, as K4 reads it
     sums = segment_sum_sorted(g_et, hi)
     sums_p = segment_sum_sorted_plain(g_et, hi)
     torch.cuda.synchronize()
@@ -460,7 +477,7 @@ def run(ckpt_dir: str) -> int:
 
     def backward_once():
         g = composite_tiles_bwd(*bwd_args)
-        return segment_sum_sorted(g.index_select(0, positions).t().contiguous(), hi)
+        return segment_sum_sorted(g.index_select(0, positions).t(), hi)
 
     first, second = backward_once(), backward_once()
     torch.cuda.synchronize()
@@ -470,6 +487,22 @@ def run(ckpt_dir: str) -> int:
           f"err {k4_err:.3g} (sums {tuple(sums.shape)}); backward bit-identical "
           f"over two runs; {t_pairs} (pixel, entry) pairs evaluated, "
           f"{t_kept_pairs} kept")
+    seg_len = torch.diff(hi, prepend=hi.new_zeros(1))
+    k4_segments = {"mean": float(seg_len.double().mean()),
+                   "p99": float(torch.quantile(seg_len.double(), 0.99)),
+                   "max": int(seg_len.max()), "empty": int((seg_len == 0).sum()),
+                   f"longer_than_{K4_SHORT}": int((seg_len > K4_SHORT).sum()),
+                   "segments": int(seg_len.numel())}
+    print(f"K4 segment lengths: {k4_segments}")
+    gathered = gout.index_select(0, positions)
+    k4_glue = {
+        # the gather the backward runs before K4
+        "gather": kernel_device_ms(lambda: gout.index_select(0, positions), None, iters),
+        # the attribute-major copy K4 no longer needs
+        "attribute_major_copy": kernel_device_ms(lambda: gathered.t().contiguous(),
+                                                 None, iters),
+    }
+    print(f"K4 glue: {k4_glue}")
     warp_entries = kept_warp_entries(fwd_args)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -536,19 +569,23 @@ def run(ckpt_dir: str) -> int:
     rows = g_et.shape[0]
     n_seg = hi.shape[0]
     covered = int(hi[-1])
-    lengths = torch.diff(hi, prepend=hi.new_zeros(1))
-    lib_vals = g_et[:, :covered].contiguous()
-    lib_lengths = lengths[None].expand(rows, n_seg).contiguous()
+    lib_vals = g_et.t()[:covered]  # entry-major, as K4 reads it
+    lib_vals_t = g_et[:, :covered].contiguous()  # attribute-major
+    lib_lengths_t = seg_len[None].expand(rows, n_seg).contiguous()
     k4 = {
         **kernel_device_ms(lambda: segment_sum_sorted(g_et, hi),
                            "segment_sum_kernel", iters),
         "wrapper_ms": event_ms(lambda: segment_sum_sorted(g_et, hi), iters),
         "plain_ms": event_ms(lambda: segment_sum_sorted_plain(g_et, hi), iters),
         "library_ms": event_ms(lambda: torch.segment_reduce(
-            lib_vals, "sum", lengths=lib_lengths, axis=1), iters),
+            lib_vals, "sum", lengths=seg_len, axis=0), iters),
+        "library_axis1_ms": event_ms(lambda: torch.segment_reduce(
+            lib_vals_t, "sum", lengths=lib_lengths_t, axis=1), iters),
     }
-    lib = torch.segment_reduce(lib_vals, "sum", lengths=lib_lengths, axis=1)
-    assert_close("segment_reduce vs K4", lib, sums, rtol=1e-5, atol=1e-6 * mag)
+    # a yardstick for K4's bytes: one read of the values it covers
+    floors["k4_read"] = kernel_device_ms(lambda: torch.sum(lib_vals), None, iters)
+    lib = torch.segment_reduce(lib_vals, "sum", lengths=seg_len, axis=0)
+    assert_close("segment_reduce vs K4", lib.t(), sums, rtol=1e-5, atol=1e-6 * mag)
     pack["train"] = kernel_device_ms(lambda: pack_records(*fwd_args[:4]), None, iters)
     print(f"K2 {k2}\nK4 {k4}\npack_records {pack['train']}")
     k2_bytes = (TRAIN_ISECT * (6 + ch) * 4 + t_n_isect * (4 + 4 * (6 + ch))
@@ -588,6 +625,8 @@ def run(ckpt_dir: str) -> int:
             "bytes": nbytes, "operations": ops,
             "library_ms": t["library_ms"],
         }
+        if "library_axis1_ms" in t:
+            entry["library_axis1_ms"] = t["library_axis1_ms"]
         if name in launches:
             entry["launches_render"] = launches[name]
         if name in resident:
@@ -596,6 +635,8 @@ def run(ckpt_dir: str) -> int:
     print(json.dumps({"kernels": kernels,
                       "train_tile_lengths": tile_lengths,
                       "train_kept_warp_entries": warp_entries,
+                      "k4_segments": k4_segments, "k4_glue": k4_glue,
+                      "floors": floors,
                       "pack_records": pack,
                       "request_ms_median": statistics.median(ms),
                       "request_ms_min": min(ms),

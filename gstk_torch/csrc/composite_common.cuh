@@ -1,7 +1,8 @@
 // What the forward (K1, composite_fwd.cu) and the backward (K2,
 // composite_bwd.cu) share: the compositing decisions, the packed
 // per-Gaussian record and the staging of a batch of records into shared
-// memory.
+// memory. The segment sum (K4, segment_sum.cu) stages with the same
+// cp.async helpers.
 //
 // K2 differentiates the image K1 made only if it keeps, skips and stops on
 // exactly the entries K1 did, and recomputes the same transmittance bit for

@@ -210,8 +210,9 @@ class _CompositeTiles(torch.autograd.Function):
             gout = composite_tiles_bwd(*args, records=records)
             segment_sum = segment_sum_sorted
         # rows in expansion (Gaussian-major) order: each Gaussian's entries
-        # are then one contiguous segment ending at its clipped count cumsum
-        g_et = gout.index_select(0, positions).t().contiguous()
+        # are then one contiguous segment ending at its clipped count cumsum;
+        # K4 reads the gathered rows entry-major, as they are
+        g_et = gout.index_select(0, positions).t()
         cap = gaussian_ids.shape[0]
         hi = torch.clamp(torch.cumsum(counts.long(), 0), max=cap)
         sums = segment_sum(g_et, hi)  # (6 + ch, N)

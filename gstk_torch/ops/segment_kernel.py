@@ -19,7 +19,13 @@ Each wrapper launches its CUDA kernel (``csrc/segment_broadcast.cu``,
 ``csrc/segment_sum.cu``) for CUDA tensors and runs its plain twin only for
 CPU tensors. The TPU versions' MXU limb matmuls, masked MXU contractions,
 128-lane tables and chunk prefixes are TPU workarounds and are not carried
-over: K3 is a binary search per slot, K4 a warp per segment.
+over. A CTA of K3 owns a run of 64 boundaries and writes the slots they
+span, counting each slot against the run in shared memory; the slots past
+the last boundary take the last prefix with no search. K4 reads the values
+entry-major, (Np, rows) with each entry's rows contiguous, the order the
+backward's per-intersection rows have once gathered by expansion position;
+it stages a run of Gaussians' contiguous span in shared memory and sums
+each segment in one thread (a warp for long segments).
 """
 
 from __future__ import annotations
@@ -145,9 +151,11 @@ def segment_sum_sorted(vals_t: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """``out[c, g] = sum_{hi[g-1] <= j < hi[g]} vals_t[c, j]`` (hi[-1] = 0):
     kernel K4 on CUDA tensors, the plain twin on CPU tensors.
 
-    ``vals_t`` (rows, Np) float32; ``hi`` (N,) nondecreasing segment ends,
-    clipped to Np. Returns (rows, N) float32, zero for empty segments; the
-    kernel sums in a fixed order, so its result is the same on every run."""
+    ``vals_t`` (rows, Np) float32, in any layout; the kernel reads it
+    entry-major, so ``x.t()`` of a contiguous (Np, rows) ``x`` costs no
+    copy. ``hi`` (N,) nondecreasing segment ends, clipped to Np. Returns
+    (rows, N) float32, zero for empty segments; the kernel sums in a fixed
+    order, so its result is the same on every run."""
     _check_sum(vals_t, hi)
     if vals_t.device.type == "cpu":
         return segment_sum_sorted_plain(vals_t, hi)
@@ -155,8 +163,13 @@ def segment_sum_sorted(vals_t: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"segment_sum_sorted: unsupported device {vals_t.device}")
     rows, npv = vals_t.shape
     n = hi.shape[0]
-    vals = vals_t.contiguous()
-    hi32 = torch.clamp(hi, max=npv).to(torch.int32).contiguous()
+    # the kernel reads entry-major values, (Np, rows) contiguous: the
+    # transpose of such a tensor goes in as it is, any other layout is
+    # copied into that order first
+    vals = vals_t.t()
+    if not vals.is_contiguous():
+        vals = vals.contiguous()
+    hi32 = torch.clamp(hi, 0, npv).to(torch.int32).contiguous()
     out = torch.empty((rows, n), dtype=torch.float32, device=vals.device)
     fn = _build.kernel_function("gstk_segment_sum", _SUM_ARGTYPES)
     with torch.cuda.device(vals.device):

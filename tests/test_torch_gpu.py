@@ -11,7 +11,8 @@ must agree within gstk_tpu's image parity tolerances (rtol 1e-3, atol 1e-4);
 K2 (compositing backward) within the gradient tolerance (rtol 5e-3, atol
 1e-4 of each column's largest value); K4 (segment sum) within rtol 1e-5 and
 atol 1e-6 of the segment's sum of magnitudes (the f32 summation error grows
-with it; one segment here sums 40k values). The backward K2 -> gather -> K4
+with it; one segment here sums 40k values), in both input layouts. The
+backward K2 -> gather -> K4
 must give the same bits on every run. K1 and K2 are also held against their
 twins on intersections built by hand (``_tile_case``): a range long enough
 that their batches wrap many times, opaque tiles where pixels stop at
@@ -51,20 +52,41 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("case", ["random", "past_length", "zero_counts"])
+K3_CASES = ("random", "past_length", "zero_counts", "long_tail", "wide_window",
+            "odd_length", "one_column")
+
+
+@pytest.mark.parametrize("case", K3_CASES)
 def test_segment_broadcast_kernel_equals_twin(cuda, case):
+    """Three columns (one in ``one_column``). long_tail: over 300,000 slots
+    past the last boundary, which the tail CTAs fill; wide_window: 3,000
+    equal boundaries at slot 5,001, wider than a CTA's run of 64, so runs
+    own no slot and one slot ends many runs; odd_length: a length that is a
+    multiple of neither a tail CTA's slots nor the 4 slots a thread stores
+    at once."""
     g = torch.Generator(device=cuda).manual_seed(0)
     n, length = 50_000, 1 << 18
     counts = torch.randint(0, 9, (n,), generator=g, device=cuda)
     if case == "zero_counts":
         counts[torch.rand(n, generator=g, device=cuda) < 0.7] = 0
+    if case == "long_tail":
+        counts = torch.randint(0, 3, (n,), generator=g, device=cuda)
+        length = 1 << 19
+    if case == "odd_length":
+        length = (1 << 18) - 1001
     b = torch.cumsum(counts, 0)
     if case == "past_length":
         b = b * 2
+    if case == "wide_window":
+        b = torch.sort(torch.cat([b[:-3000], torch.full_like(b[:3000], 5001)])).values
     ds = [torch.ones(n, dtype=torch.int32, device=cuda)] + [
         torch.randint(-2**31, 2**31, (n,), generator=g, device=cuda,
                       dtype=torch.int64).int() for _ in range(2)
     ]
+    if case == "one_column":
+        ds = ds[:1]
+    if case == "long_tail":
+        assert length - int(b[-1]) >= 300_000
     before = segment_broadcast.launches
     got = segment_broadcast(b.int(), ds, length)
     assert segment_broadcast.launches == before + 1
@@ -171,28 +193,54 @@ def test_composite_bwd_kernel_matches_twin(cuda, ch, opaque):
         assert float(untouched[: int(isect.num_intersects)].float().mean()) > 0.1
 
 
-@pytest.mark.parametrize("case", ["random", "empty", "one_covers_all", "clipped"])
+K4_CASES = ("random", "empty", "one_covers_all", "clipped", "long", "overflow",
+            "empty_run", "odd_n", "rows_9")
+
+
+@pytest.mark.parametrize("case", K4_CASES)
 def test_segment_sum_kernel_matches_twin(cuda, case):
+    """Each case in both layouts: the entry-major view the backward passes
+    (``x.t()`` of a contiguous (Np, rows) tensor) and a contiguous
+    attribute-major (rows, Np) tensor, which the wrapper copies. long: a
+    segment of 2,500 entries, summed by a warp from global memory, and one
+    of 100, summed by a warp from shared memory; overflow: the 128
+    Gaussians of one CTA with 31 entries each, a span (158,720 B) larger
+    than the staging buffer; empty_run: 700 empty segments in a row; odd_n: N not a
+    multiple of a CTA's 128 Gaussians; rows_9: the backward's rows at ch 3,
+    36-B entries, so spans start at every 4-B offset of a 16-B vector."""
     g = torch.Generator(device=cuda).manual_seed(1)
     rows, npv, n = 10, 1 << 16, 20_000
-    vals = torch.randn((rows, npv), generator=g, device=cuda)
+    if case == "odd_n":
+        n = 12_345
+    if case == "rows_9":
+        rows = 9
     counts = torch.randint(0, 7, (n,), generator=g, device=cuda)
     if case == "empty":  # most segments empty, as dead Gaussians are
         counts[torch.rand(n, generator=g, device=cuda) < 0.8] = 0
+    if case == "long":  # and one a warp sums from the staged span
+        counts[5000] = 2500
+        counts[9000] = 100
+    if case == "overflow":
+        counts[256:384] = 31
+    if case == "empty_run":
+        counts[3000:3700] = 0
     hi = torch.cumsum(counts, 0)
     if case == "one_covers_all":
         hi = torch.zeros(n, dtype=torch.int64, device=cuda)
         hi[n // 3:] = npv + 100
     if case == "clipped":  # ends run past Np and are clipped there
         hi = hi * 8
-    before = segment_sum_sorted.launches
-    got = segment_sum_sorted(vals, hi.int())
-    assert segment_sum_sorted.launches == before + 1
-    want = segment_sum_sorted_plain(vals, hi.int())
-    _close(got, want, 1e-5, 1e-6 * segment_sum_sorted_plain(vals.abs(), hi.int()))
+    entry_major = torch.randn((npv, rows), generator=g, device=cuda)
     lo = torch.cat([hi.new_zeros(1), torch.clamp(hi, max=npv)[:-1]])
     empty = torch.clamp(hi, max=npv) <= lo
-    assert bool((got[:, empty] == 0).all())
+    for vals in (entry_major.t(), entry_major.t().contiguous()):
+        before = segment_sum_sorted.launches
+        got = segment_sum_sorted(vals, hi.int())
+        assert segment_sum_sorted.launches == before + 1
+        want = segment_sum_sorted_plain(vals, hi.int())
+        _close(got, want, 1e-5,
+               1e-6 * segment_sum_sorted_plain(vals.abs(), hi.int()))
+        assert bool((got[:, empty] == 0).all())
 
 
 TILE_CASES = ("long", "opaque", "sentinel", "empty")
@@ -292,6 +340,6 @@ def test_backward_is_deterministic(cuda):
 
     def backward():
         gout = composite_tiles_bwd(*args)
-        return segment_sum_sorted(gout.index_select(0, positions).t().contiguous(), hi)
+        return segment_sum_sorted(gout.index_select(0, positions).t(), hi)
 
     assert torch.equal(backward(), backward())

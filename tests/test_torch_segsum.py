@@ -1,7 +1,8 @@
 """gstk_torch's segment sum (the plain twin of kernel K4) against gstk_tpu's
 ``segment_sum_sorted`` (its Pallas kernel in interpret mode), mirroring
 tests/test_segment_kernel.py: random, empty and clipped segments, and
-segment ends past Np.
+segment ends past Np, with the values attribute-major and as the
+entry-major view the backward passes.
 
 Tolerance: rtol 1e-5, atol 1e-6 max|segment sum|. gstk_tpu's default of
 three bf16 terms is about f32; the two sum each segment in other orders.
@@ -53,6 +54,23 @@ def test_segment_sum_plain_matches_jax(rng, case):
     if case == "one_covers_all":
         np.testing.assert_allclose(got.numpy()[:, n // 6], vals.sum(1),
                                    rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["random", "sparse", "past_np"])
+def test_segment_sum_entry_major_view_matches_jax(rng, case):
+    """The layout the backward hands over: ``x.t()`` of a contiguous
+    (Np, rows) array, each entry's rows contiguous, as kernel K4 reads it."""
+    rows, npv, n = 16, 3000, 2500
+    x = rng.normal(size=(npv, rows)).astype(np.float32)
+    hi = _hi(rng, case, npv, n).astype(np.int32)
+    ref = np.asarray(jsegsum(jnp.asarray(np.ascontiguousarray(x.T)),
+                             jnp.asarray(hi), interpret=True))
+    vals_t = torch.from_numpy(x).t()
+    assert vals_t.stride() == (1, rows)
+    got = tseg.segment_sum_sorted(vals_t, torch.from_numpy(hi))
+    assert got.shape == (rows, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                               atol=1e-6 * np.abs(ref).max())
 
 
 def test_segment_sum_plain_takes_int64_ends_and_odd_rows(rng):
