@@ -49,14 +49,35 @@ line:
      CPU step test's tolerances); then 2 warm-up and 10 timed steps (host
      clock, synchronized), one traced step (its cat launches listed), and
      K2 / K4 / ``pack_records`` timings, with one ``torch.sum`` over the
-     values K4 covers (a floor for its bytes);
+     values K4 covers (a floor for its bytes); ``refine`` on this state
+     (capacity 104*1024, 100k alive) at a densifying step, synchronized;
+  11. trainer path: the port's synthetic-dataset generator writes 24 views
+     at 800x800 of its 500-point object on the card, the dataset's seed
+     cloud is rewritten with 100k points drawn around the object's, and
+     ``gstk_torch.scripts.train.main`` trains gaussian-splatting on it for
+     400 steps in this process (every step at 800x800, SH degree 3 from
+     step 300, refinement densifying at steps 200-400, one eval view every
+     100 steps), with the launch counters reset just before; K1-K4 must
+     each launch, the losses stay finite, ``num_alive`` change, the final
+     eval PSNR beat the first ``eval_image`` PSNR (step 99), the final
+     checkpoint render an eval view through ``Renderer(..., device="cuda")``
+     as the trainer renders it, one trainer step from the trained state
+     and one eval render match the same through the plain twins (phase
+     10's and phase 6's tolerances), ``refine`` on the card equal
+     ``refine`` on the CPU from the same state and noise, and Pillow,
+     OpenCV and PyYAML stay unimported; prints the trainer's per-step wall
+     time (its ``ITER_TRAIN_TIME``, and 20 more steps synchronized),
+     ``refine`` at the trained capacity, ``eval_all`` per view, each
+     capacity growth up to the 2^21 ceiling (forced after the run) and
+     ``refine`` at that ceiling, synchronized;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
-bounds), the card's name and power limit, and the last line
-``{"ok": true, "device": {...}}``.
+bounds; phase 11's numbers under ``trainer``), the card's name and power
+limit, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -64,6 +85,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -91,10 +113,20 @@ from gstk_torch.ops.segment_kernel import (
     segment_sum_sorted,
     segment_sum_sorted_plain,
 )
+from gstk_torch.data.synthetic import ISECT_CAPACITY, generate_synthetic_dataset
 from gstk_torch.render.renderer import Renderer
-from gstk_torch.train.checkpoint import save_scene, train_state_to_numpy
+from gstk_torch.scripts.train import main as train_main
+from gstk_torch.train.checkpoint import (
+    save_scene,
+    train_state_from_numpy,
+    train_state_to_numpy,
+)
 from gstk_torch.train.optim import OptimizerConfig
 from gstk_torch.train.step import init_train_state, make_train_step
+from gstk_torch.train.strategy import refine
+from gstk_torch.utils.colors import EVAL_BACKGROUND
+from gstk_torch.utils.io import read_ply_points, write_ply
+from gstk_torch.utils.profiler import PROFILER
 
 SEED = 0
 N_POINTS, CAPACITY, SH_DEGREE = 100_000, 104 * 1024, 3
@@ -118,6 +150,16 @@ K1_FLOP_PER_PAIR = 21  # ~20 FLOP + 1 exp per (pixel, entry) pair evaluated
 # a lane, nor any shuffle: those are the kernel's cost, not the function's.
 K2_FLOP_PER_PAIR = 15
 K2_FLOP_PER_KEPT = lambda ch: 37 + 4 * ch
+# phase 11: the synthetic object's points, few enough that no 800x800 view
+# of the generator's render exceeds its ISECT_CAPACITY (2^17) intersections
+# (it raises if one does; the count grows with the points)
+SYN_POINTS, SYN_VIEWS = 500, 24
+# the trainer's seed cloud: phase 10's count, each point one of the
+# object's, picked at random, jittered by N(0, SEED_JITTER) on each axis
+SEED_POINTS, SEED_JITTER = N_POINTS, 0.05
+TRAIN_ITERS = 400
+REFINE_TIMES = 5  # synchronized refine calls timed, median reported
+REFINE_STEP = 1000  # phase 10's refine: past warmup, densifying
 
 
 def phase(name):
@@ -588,11 +630,20 @@ def run(ckpt_dir: str) -> int:
     assert_close("segment_reduce vs K4", lib.t(), sums, rtol=1e-5, atol=1e-6 * mag)
     pack["train"] = kernel_device_ms(lambda: pack_records(*fwd_args[:4]), None, iters)
     print(f"K2 {k2}\nK4 {k4}\npack_records {pack['train']}")
+    _, bench_info, bench_refine_ms = refine_runs(
+        train_state_to_numpy(state), model_cfg, 1, W, DEVICE, REFINE_STEP,
+        REFINE_TIMES)
+    print(f"refine at capacity {CAPACITY} ({N_POINTS} alive), step "
+          f"{REFINE_STEP}: {[round(x, 3) for x in bench_refine_ms]} ms "
+          f"(synchronized); info {bench_info}")
     k2_bytes = (TRAIN_ISECT * (6 + ch) * 4 + t_n_isect * (4 + 4 * (6 + ch))
                 + num_tiles * 256 * (2 * ch + 2) * 4 + num_tiles * 8)
     k2_ops = t_pairs * K2_FLOP_PER_PAIR + t_kept_pairs * K2_FLOP_PER_KEPT(ch)
     k4_bytes = rows * covered * 4 + n_seg * 4 + rows * n_seg * 4
     k4_ops = rows * covered
+
+    trainer_numbers = trainer_phase(Path(ckpt_dir), counters)
+    trainer_numbers["bench_refine_ms"] = statistics.median(bench_refine_ms)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -641,11 +692,280 @@ def run(ckpt_dir: str) -> int:
                       "request_ms_median": statistics.median(ms),
                       "request_ms_min": min(ms),
                       "train_step_ms_median": statistics.median(ms_steps),
-                      "train_step_ms_min": min(ms_steps), "power": smi}))
+                      "train_step_ms_min": min(ms_steps),
+                      "trainer": trainer_numbers, "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
+
+
+def write_seed_cloud(data: Path, n: int) -> None:
+    """Rewrite the dataset's ``sparse.ply`` with ``n`` seed points: each a
+    point of the generator's own cloud, picked at random, moved by
+    N(0, SEED_JITTER) on each axis, with that point's color. The generator
+    writes the points of its object, as few as its fixed intersection
+    buffer allows; the trainer starts from this cloud, at the size of
+    phase 10's scene."""
+    rng = np.random.default_rng(SEED)
+    pts, rgb = read_ply_points(data / "sparse.ply")
+    pick = rng.integers(0, len(pts), n)
+    xyz = (pts[pick] + rng.normal(0.0, SEED_JITTER, (n, 3))).astype(np.float32)
+    write_ply(data / "sparse.ply", {"vertex": {
+        "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+        "red": rgb[pick, 0], "green": rgb[pick, 1], "blue": rgb[pick, 2],
+    }})
+
+
+def trainer_phase(work_dir: Path, counters) -> dict:
+    """Phase 11: the trainer's CLI on a synthetic dataset, in process."""
+    phase("11 trainer path: gstk_torch.scripts.train, 400 steps at 800x800")
+    t0 = time.perf_counter()
+    data = generate_synthetic_dataset(
+        work_dir / "synthetic", n_points=SYN_POINTS, n_views=SYN_VIEWS,
+        img_wh=(W, H), seed=SEED, device=DEVICE,
+    )
+    write_seed_cloud(data, SEED_POINTS)
+    print(f"synthetic dataset: {SYN_POINTS} points, {SYN_VIEWS} views at "
+          f"{W}x{H}, no view over the generator's {ISECT_CAPACITY} "
+          f"intersections (it raises otherwise); seed cloud {SEED_POINTS} "
+          f"points; {time.perf_counter() - t0:.1f} s")
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_main([
+        "--device", DEVICE, "gaussian-splatting", "--data", str(data),
+        "--output-dir", str(work_dir / "runs"),
+        "--max-num-iterations", str(TRAIN_ITERS),
+        "--model.num-downscales", "0", "--model.sh-degree-interval", "100",
+        "--model.warmup-length", "100", "--steps-per-eval-image", "100",
+        "--steps-per-eval-all-images", "400", "--steps-per-save", "400",
+        "--dataparser.eval-mode", "interval", "--dataparser.eval-interval", "8",
+    ])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    print(f"trainer run {run_s:.1f} s (setup, {TRAIN_ITERS} steps, evals, "
+          f"checkpoints); launches {launches}")
+    for name, n in launches.items():
+        assert n >= 1, f"{name} not launched by the trainer"
+
+    run_dir = trainer.config.run_dir
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").open()]
+    col = lambda key: [(r["step"], r[key]) for r in rows if key in r]
+    losses, alive = col("loss"), col("num_alive")
+    assert losses and all(math.isfinite(v) for _, v in losses), "loss not finite"
+    assert alive[0][1] != alive[-1][1], "num_alive never changed"
+    images = col("eval_image_psnr")
+    final_eval = col("eval_psnr")[-1]
+    print(f"num_alive {alive[0][1]:.0f} -> {alive[-1][1]:.0f}; loss "
+          f"{losses[0][1]:.5f} -> {losses[-1][1]:.5f}; eval_image PSNR "
+          f"{[(s, round(v, 3)) for s, v in images]} (step, dB), final eval "
+          f"PSNR {final_eval[1]:.3f} (step {final_eval[0]})")
+    # the amortized wall time per step of each log window; the first holds
+    # the caching of the train split
+    iter_ms = [v * 1e3 for _, v in col("Train Iter (time)")][1:]
+    step_ms = {"median": statistics.median(iter_ms), "min": min(iter_ms),
+               "max": max(iter_ms), "windows": len(iter_ms)}
+    print(f"trainer per-step wall time (ITER_TRAIN_TIME over "
+          f"{len(iter_ms)} log windows after the first): median "
+          f"{step_ms['median']:.3f} ms, min {step_ms['min']:.3f}, max "
+          f"{step_ms['max']:.3f}")
+
+    # the final checkpoint, rendered by the Renderer as the trainer renders it
+    frame = trainer.datamanager.eval_frames[0]
+    assert frame.image.shape == (H, W, 4)  # the generator writes RGBA
+    gt = frame.image[..., :3] * frame.image[..., 3:] + (
+        1.0 - frame.image[..., 3:]) * np.asarray(EVAL_BACKGROUND, np.float32)
+    psnr = lambda pred: float(-10.0 * np.log10(np.mean((pred - gt) ** 2)))
+    renderer = Renderer(run_dir, background=EVAL_BACKGROUND, device=DEVICE)
+    out = renderer.get_output_from_pose(frame.c2w, frame.fx, frame.fy,
+                                        frame.cx, frame.cy, H, W)
+    assert np.isfinite(out["rgb"]).all() and out["accumulation"].mean() > 0.01
+    ckpt_psnr = psnr(out["rgb"])
+    own_psnr = psnr(trainer._render_eval(frame)["rgb"].cpu().numpy())
+    print(f"checkpoint step {renderer.step} through Renderer: eval view 0 PSNR "
+          f"{ckpt_psnr:.4f}, the trainer's own render {own_psnr:.4f}")
+    assert abs(ckpt_psnr - own_psnr) < 0.01, "the checkpoint renders otherwise"
+    del renderer
+
+    frames = trainer.datamanager.eval_frames
+    eval_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._score_views(frames)
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3 / len(frames))
+    print(f"eval_all per view: {[round(x, 3) for x in eval_ms]} ms over "
+          f"{len(frames)} views (synchronized)")
+
+    trainer_vs_plain(trainer)
+    refine_numbers = refine_check(trainer)
+    grow_numbers = grow_check(trainer)
+    loaded = [m for m in ("PIL", "cv2", "yaml") if m in sys.modules]
+    assert not loaded, f"the trainer path imported {loaded}"
+    # read; left in place, the profiler's exit report would print after
+    # the last line
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    assert final_eval[1] > images[0][1], (
+        f"the final eval ({final_eval[1]:.3f} dB) is no better than the "
+        f"first eval_image ({images[0][1]:.3f} dB at step {images[0][0]})")
+    return {"launches": launches, "run_s": run_s, "step_ms": step_ms,
+            "eval_all_ms_per_view": statistics.median(eval_ms),
+            "num_alive": [alive[0][1], alive[-1][1]],
+            "eval_image_psnr": images, "final_eval_psnr": final_eval[1],
+            **refine_numbers, **grow_numbers}
+
+
+def trainer_vs_plain(trainer) -> None:
+    """One trainer step from the trained state through the kernels (the
+    trainer's own step function) against the same step through the plain
+    twins (``backend="plain"``, the trainer's raster config otherwise),
+    from one carried-over state and one generator state (the random
+    background), with phase 10's tolerances; then one eval render both
+    ways, with phase 6's."""
+    cfg = trainer.config
+    step = int(trainer.state.step)
+    sh = trainer._sh_degree(step)
+    plain_raster = dataclasses.replace(trainer.raster_cfg, backend="plain")
+    fns = (trainer._step_fn(H, W, sh, False),
+           make_train_step(cfg.model, plain_raster, cfg.optim, H, W, sh))
+    idx, frame = trainer.datamanager.next_train()
+    camera, gt, mask = trainer._train_inputs(idx, frame, 1)
+    before = train_state_to_numpy(trainer.state)
+    gen_state = trainer.generator.get_state()
+    outs = []
+    for fn in fns:
+        gen = torch.Generator(device=DEVICE)
+        gen.set_state(gen_state)
+        s, m = fn(train_state_from_numpy(before, DEVICE), camera, gt, gen, mask)
+        torch.cuda.synchronize()
+        outs.append((train_state_to_numpy(s), m))
+    (got, m_k), (want, m_p) = outs
+    print(f"trainer step {step} ({int(m_k['num_intersects'])} intersections "
+          f"of {trainer.raster_cfg.isect_capacity}):", end=" ")
+    compare_steps(m_k, m_p, before, got, want, cfg.optim, step)
+
+    frame = trainer.datamanager.eval_frames[0]
+    setting = trainer._eval_setting()
+    got = trainer._render_eval(frame, setting)
+    saved, trainer.raster_cfg = trainer.raster_cfg, plain_raster
+    want = trainer._render_eval(frame, setting)
+    trainer.raster_cfg = saved
+    errs = {}
+    for k in ("rgb", "depth", "alpha"):
+        assert_close(f"trainer eval render {k}", got[k], want[k], **PARITY)
+        errs[k] = float((got[k] - want[k]).abs().max())
+    print(f"trainer eval render vs plain twins: max abs err {errs}")
+
+
+def refine_runs(flat, cfg, num_train, img_size, device, step=None,
+                reps=1, noise=None):
+    """``refine`` from the carried-over state ``flat`` on ``device`` at
+    ``step`` (the state's when None), ``reps`` times, each from a fresh
+    copy and synchronized; the noise is one seed-0 draw when not given.
+    Returns the last state, its ``info`` and the times in ms."""
+    if noise is None:
+        cap = flat[".scene/.means"].shape[0]
+        noise = torch.randn((cfg.n_split_samples, cap, 3),
+                            generator=torch.Generator().manual_seed(SEED))
+    step = int(flat[".step"]) if step is None else step
+    ms = []
+    for _ in range(reps):
+        s = train_state_from_numpy(flat, device)
+        n = noise.to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, info = refine(s.scene, s.adam, s.refine, step, cfg,
+                               num_train, img_size, noise=n)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return s, {k: v.item() for k, v in info.items()}, ms
+
+
+def refine_check(trainer) -> dict:
+    """``refine`` at the trained capacity: 20 more steps (timed one by
+    one, synchronized) give it statistics, and one more, traced, the
+    trainer step's device idle share; then from that state and one noise
+    draw, on the card (timed, synchronized) and on the CPU, which must
+    agree: equal alive masks and ``info``, parameters within rtol 1e-6
+    (means within 1e-6 of the largest ``|mean|``: a child's mean sums its
+    parent's and an offset whose ``exp`` rounds differently on the two
+    devices)."""
+    step_fn = trainer._step_fn(H, W, trainer._sh_degree(TRAIN_ITERS), False)
+    step_ms = []
+    for _ in range(20):
+        idx, frame = trainer.datamanager.next_train()
+        t0 = time.perf_counter()
+        camera, gt, mask = trainer._train_inputs(idx, frame, 1)
+        trainer.state, _ = step_fn(trainer.state, camera, gt,
+                                   trainer.generator, mask)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"trainer step at the trained state: median "
+          f"{statistics.median(step_ms):.3f} ms, min {min(step_ms):.3f} "
+          f"(host clock, synchronized, 20 steps)")
+    trace("trainer step", lambda: step_fn(trainer.state, camera, gt,
+                                          trainer.generator, mask))
+    flat = train_state_to_numpy(trainer.state)
+    cap = trainer.state.scene.capacity
+    args = (trainer.config.model, trainer.datamanager.num_train,
+            max(trainer.datamanager.image_size))
+    got, got_info, refine_ms = refine_runs(flat, *args, DEVICE,
+                                           reps=REFINE_TIMES)
+    want, want_info, cpu_ms = refine_runs(flat, *args, "cpu")
+    print(f"refine at step {int(flat['.step'])}, capacity {cap}: card "
+          f"{[round(x, 3) for x in refine_ms]} ms (synchronized), CPU "
+          f"{cpu_ms[0]:.1f} ms; info {want_info}")
+    assert got_info == want_info, f"refine info: card {got_info}, CPU {want_info}"
+    assert want_info["num_split"] + want_info["num_dup"] > 0, "nothing densified"
+    got, want = train_state_to_numpy(got), train_state_to_numpy(want)
+    flips = int((got[".scene/.alive"] != want[".scene/.alive"]).sum())
+    assert flips == 0, f"refine alive masks differ in {flips} lanes"
+    means_atol = 1e-6 * float(np.abs(want[".scene/.means"]).max())
+    worst = 0.0
+    for k, v in want.items():
+        atol = means_atol if k == ".scene/.means" else 1e-7
+        np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=atol, err_msg=k)
+        worst = max(worst, float(np.abs(got[k].astype(np.float64) - v).max()))
+    print(f"refine card vs CPU: alive masks and info equal, max abs diff {worst:.3g}")
+    return {"synced_step_ms": statistics.median(step_ms),
+            "refine_ms": statistics.median(refine_ms),
+            "refine_cpu_ms": cpu_ms[0], "refine_capacity": cap,
+            "refine_alive": int(want[".scene/.alive"].sum()),
+            "refine_info": want_info}
+
+
+def grow_check(trainer) -> dict:
+    """Each capacity growth of the run (host clock, from the trainer's
+    profiler), then forced growths up to ``max_capacity`` (2^21 by
+    default), each synchronized, and ``refine`` at that capacity."""
+    grew = PROFILER.counts.get("grow_capacity", 0)
+    in_run = PROFILER.totals.get("grow_capacity", 0.0) / max(grew, 1) * 1e3
+    forced = []
+    while trainer.state.scene.capacity < trainer.config.max_capacity:
+        cap = trainer.state.scene.capacity
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._maybe_grow({"num_alive": cap, "num_intersects": 0})
+        torch.cuda.synchronize()
+        forced.append((cap, trainer.state.scene.capacity,
+                       (time.perf_counter() - t0) * 1e3))
+        assert trainer.state.scene.capacity > cap, "forced growth did not grow"
+    print(f"capacity growth: {grew} in the run ({in_run:.3f} ms each, host "
+          f"clock); forced after it (from, to, ms): {forced}")
+    cap = trainer.state.scene.capacity
+    _, info, ms = refine_runs(
+        train_state_to_numpy(trainer.state), trainer.config.model,
+        trainer.datamanager.num_train, max(trainer.datamanager.image_size),
+        DEVICE, reps=REFINE_TIMES)
+    print(f"refine at capacity {cap}: {[round(x, 3) for x in ms]} ms "
+          f"(synchronized); info {info}")
+    return {"grew_in_run": grew, "grow_in_run_ms": in_run if grew else None,
+            "grow_forced_ms": forced, "refine_max_capacity": cap,
+            "refine_max_capacity_ms": statistics.median(ms)}
 
 
 def kept_warp_entries(fwd_args) -> dict:
@@ -677,12 +997,12 @@ def step_cotangents(acc, final_t, tiles, gt, scene, model_cfg):
     return g_acc, torch.zeros_like(final_t)
 
 
-def compare_steps(metrics, metrics_p, before, got, want, optim_cfg):
-    """The kernel step against the plain step from the same state, with the
-    CPU step test's tolerances: loss rtol 1e-4; first moments (0.1 g) and
-    sqrt of second moments at the gradient tolerance; parameter updates at
-    rtol 5e-3 where |g| > 1e-3 max|g| and within 2 lr elsewhere; at most
-    0.5% of a group outside."""
+def compare_steps(metrics, metrics_p, before, got, want, optim_cfg, step=0):
+    """The kernel step against the plain step from the same state at
+    ``step``, with the CPU step test's tolerances: loss rtol 1e-4; first
+    moments and sqrt of second moments at the gradient tolerance;
+    parameter updates at rtol 5e-3 where |mu| > 1e-3 max|mu| and within 2
+    lr (the step's) elsewhere; at most 0.5% of a group outside."""
     for k in ("loss", "main_loss", "psnr"):
         a, b = float(metrics[k]), float(metrics_p[k])
         assert math.isclose(a, b, rel_tol=1e-4), f"{k}: {a} vs plain {b}"
@@ -707,7 +1027,7 @@ def compare_steps(metrics, metrics_p, before, got, want, optim_cfg):
         d_k = got[f".scene/.{g}"] - before[f".scene/.{g}"]
         d_p = want[f".scene/.{g}"] - before[f".scene/.{g}"]
         strong = np.abs(mu_p) > 1e-3 * np.abs(mu_p).max()
-        lr = float(optim_cfg.schedule_for(g)(torch.tensor(0)))
+        lr = float(optim_cfg.schedule_for(g)(torch.tensor(step)))
         bad = np.where(strong, ~np.isclose(d_k, d_p, rtol=RTOL_GRAD, atol=0.0),
                        np.abs(d_k - d_p) > 2.0 * lr + 1e-7)
         worst[f"update {g}"] = int(bad.sum())

@@ -152,12 +152,16 @@ def init_scene(
 
 
 def grow_scene(scene: GaussianScene, new_capacity: int) -> GaussianScene:
-    """Capacity growth: pad with dead lanes (identity quats)."""
+    """Capacity growth on the scene's device: pad with dead lanes (zeros,
+    identity quats)."""
     if new_capacity < scene.capacity:
         raise ValueError(f"cannot shrink {scene.capacity} -> {new_capacity}")
-    arrays = scene_to_numpy(scene)
     extra = new_capacity - scene.capacity
-    for k, v in arrays.items():
-        arrays[k] = np.concatenate([v, np.zeros((extra,) + v.shape[1:], v.dtype)])
-    arrays["quats"][scene.capacity:, 0] = 1.0
-    return scene_from_numpy(arrays, scene.means.device)
+
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        x = x.detach()
+        return torch.cat([x, x.new_zeros((extra,) + x.shape[1:])])
+
+    fields = {k: pad(getattr(scene, k)) for k in FIELD_NAMES}
+    fields["quats"][scene.capacity:, 0] = 1.0
+    return GaussianScene(**fields)

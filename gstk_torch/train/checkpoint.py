@@ -1,14 +1,14 @@
-"""Checkpoint reading, scene writing and the train state as flat numpy
-arrays (port of part of ``gstk_tpu/train/checkpoint.py``).
+"""Checkpoint save and load (port of ``gstk_tpu/train/checkpoint.py``).
 
 gstk_tpu writes one ``step-{step:09d}.ckpt.npz`` per save: the flattened
 train state under path keys (``.scene/.means``, ``.adam/.mu/['means']``,
 ``.refine/.vis_counts``, ..., ``.step``) plus scalar run metadata under
-``.meta/`` (``isect_capacity``, ``bands``, ``sh_degree``). This module reads
-that layout with numpy alone; :func:`save_scene` writes a scene-only file in
-it, which both packages can load for rendering; and
-:func:`train_state_to_numpy` / :func:`train_state_from_numpy` carry the full
-train state under the same keys, so a run can move between the packages.
+``.meta/`` (``isect_capacity``, ``bands``, ``sh_degree``). This module
+reads and writes that layout with numpy alone, so a checkpoint written by
+either package loads in the other: :func:`save_checkpoint` /
+:func:`load_checkpoint` carry the full train state, :func:`save_scene`
+writes a scene-only file for rendering, and :func:`train_state_to_numpy` /
+:func:`train_state_from_numpy` give the flat arrays under the same keys.
 """
 
 from __future__ import annotations
@@ -118,3 +118,45 @@ def train_state_from_numpy(arrays: Dict[str, np.ndarray],
     refine = RefineState(*(t(f".refine/.{k}", f32) for k in RefineState._fields))
     return TrainState(scene=scene, adam=adam, refine=refine,
                       step=t(".step", torch.int32))
+
+
+def save_checkpoint(ckpt_dir, state: TrainState, keep_only_latest: bool = True,
+                    extras: Optional[dict] = None) -> Path:
+    """Write the train state and ``extras`` (scalar run metadata, saved as
+    ``.meta/<key>``: the grown ``isect_capacity`` and ``bands``, the active
+    ``sh_degree``) as ``step-{step:09d}.ckpt.npz``; with
+    ``keep_only_latest`` the directory's other checkpoints are deleted."""
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    flat = train_state_to_numpy(state)
+    path = ckpt_dir / f"step-{int(flat['.step']):09d}.ckpt.npz"
+    for k, v in (extras or {}).items():
+        flat[f".meta/{k}"] = np.asarray(v)
+    np.savez(path, **flat)
+    if keep_only_latest:
+        for p in ckpt_dir.glob("step-*.ckpt.npz"):
+            if p != path:
+                p.unlink()
+    return path
+
+
+def load_checkpoint(path, template: TrainState) -> TrainState:
+    """The checkpoint's train state on ``template``'s device. Where the
+    template has a larger capacity, arrays are padded with zeros (dead
+    lanes); a key the checkpoint lacks keeps the template's value."""
+    arrays = train_state_to_numpy(template)
+    with np.load(path) as data:
+        for key, leaf in arrays.items():
+            if key not in data.files:
+                continue
+            arr = data[key]
+            if arr.shape != leaf.shape:
+                if arr.ndim != leaf.ndim or any(
+                        a > b for a, b in zip(arr.shape, leaf.shape)):
+                    raise ValueError(
+                        f"{key}: checkpoint shape {arr.shape} does not fit "
+                        f"template {leaf.shape}"
+                    )
+                arr = np.pad(arr, [(0, b - a) for a, b in zip(arr.shape, leaf.shape)])
+            arrays[key] = arr
+    return train_state_from_numpy(arrays, template.scene.means.device)

@@ -213,8 +213,13 @@ def zero_moments_at(
 
 
 @torch.no_grad()
-def zero_moments_group(state: AdamState, group: str) -> AdamState:
-    """Zero a whole group's moments in place (the opacity reset)."""
-    state.mu[group].zero_()
-    state.nu[group].zero_()
+def zero_moments_group(state: AdamState, group: str,
+                       when: Optional[torch.Tensor] = None) -> AdamState:
+    """Zero a whole group's moments in place (the opacity reset). With
+    ``when``, a 0-d bool tensor, only if it holds, without a host sync."""
+    for v in (state.mu[group], state.nu[group]):
+        if when is None:
+            v.zero_()
+        else:
+            v.masked_fill_(when, 0.0)
     return state

@@ -17,6 +17,12 @@ must give the same bits on every run. K1 and K2 are also held against their
 twins on intersections built by hand (``_tile_case``): a range long enough
 that their batches wrap many times, opaque tiles where pixels stop at
 different entries, sentinel ids inside ranges, and empty ranges.
+
+Refinement (``train/strategy.py::refine``, plain PyTorch) on the card
+against the CPU from the same state and split noise: equal alive masks
+and ``info``, parameters within rtol 1e-6 (the means within 1e-6 of the
+largest ``|mean|``: a split child's mean sums its parent's and an offset
+whose ``exp`` and matrix product round differently on the two devices).
 """
 
 import numpy as np
@@ -343,3 +349,51 @@ def test_backward_is_deterministic(cuda):
         return segment_sum_sorted(gout.index_select(0, positions).t(), hi)
 
     assert torch.equal(backward(), backward())
+
+
+@pytest.mark.parametrize("step", [150, 451])  # before / past the first reset
+def test_refine_cuda_matches_cpu(cuda, step):
+    from gstk_torch.core.gaussians import init_scene
+    from gstk_torch.models.vanilla import VanillaConfig
+    from gstk_torch.train.checkpoint import (
+        train_state_from_numpy,
+        train_state_to_numpy,
+    )
+    from gstk_torch.train.step import init_train_state
+    from gstk_torch.train.strategy import RefineState, refine
+
+    g = torch.Generator().manual_seed(3)
+    n, cap = 3000, 8192
+    pts = (torch.rand((n, 3), generator=g) * 4 - 2).numpy()
+    rgb = (torch.rand((n, 3), generator=g) * 255).numpy()
+    state = init_train_state(init_scene(g, cap, (pts, rgb), sh_degree=1,
+                                        device="cpu"))
+    with torch.no_grad():
+        state.scene.opacities.normal_(0.0, 2.0, generator=g)
+        state.scene.scales.uniform_(-7.0, -2.0, generator=g)
+    state.refine = RefineState(
+        xys_grad_norm=torch.rand(cap, generator=g) * 1e-6,
+        vis_counts=torch.randint(0, 5, (cap,), generator=g).float(),
+        max_2dsize=torch.rand(cap, generator=g) * 0.2,
+    )
+    state.step = torch.tensor(step, dtype=torch.int32)
+    flat = train_state_to_numpy(state)
+    cfg = VanillaConfig(warmup_length=0, refine_every=10, reset_alpha_every=30)
+    noise = torch.randn((cfg.n_split_samples, cap, 3), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        s = train_state_from_numpy(flat, dev)
+        scene, adam, _, info = refine(s.scene, s.adam, s.refine, s.step, cfg,
+                                      20, 800, noise=noise.to(dev))
+        s.scene, s.adam = scene, adam
+        out[str(dev)] = (train_state_to_numpy(s),
+                         {k: v.item() for k, v in info.items()})
+    (got, got_info), (want, want_info) = out["cuda"], out["cpu"]
+    assert got_info == want_info
+    assert want_info["num_split"] > 0 and want_info["num_dup"] > 0
+    assert want_info["num_cull"] > 0
+    np.testing.assert_array_equal(got[".scene/.alive"], want[".scene/.alive"])
+    means_atol = 1e-6 * np.abs(want[".scene/.means"]).max()
+    for k, v in want.items():
+        atol = means_atol if k == ".scene/.means" else 1e-7
+        np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=atol, err_msg=k)
