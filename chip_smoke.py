@@ -69,10 +69,28 @@ line:
      time (its ``ITER_TRAIN_TIME``, and 20 more steps synchronized),
      ``refine`` at the trained capacity, ``eval_all`` per view, each
      capacity growth up to the 2^21 ceiling (forced after the run) and
-     ``refine`` at that ceiling, synchronized;
+     ``refine`` at that ceiling, synchronized; then the d = 4 bucket of the
+     train split (the default coarse-to-fine start) is built with the
+     device peak measured, which must stay under the bytes the trainer's
+     budget check counts, and must equal the per-frame path bit for bit;
+     and ``read_png`` reads an 800x800 Paeth-filtered PNG built here with
+     numpy and zlib, bit-exact and timed;
+  12. probes: with the probes' launch counters reset just before, the
+     entry points ``gstk_torch.tools.ablate_fwd.main`` (P1: K1's ablation
+     clones at the tool's two shapes, T=2048/C=1 and T=128/C=16) and
+     ``gstk_torch.tools.bench_dynrow.main`` (P2 and P3: row scatters at
+     n = 2^20 rows against their plain twins and ``index_copy_`` bit for
+     bit, beside the gather baseline) each launch; then every P1 clone
+     against its plain twin at both shapes (rtol 1e-3 / atol 1e-4,
+     ``dmaonly`` rtol 1e-6), ``full`` and ``marg_none`` against K1 and
+     ``noexit`` against ``full`` bit for bit, and ``full``, ``noexit`` and
+     ``dmaonly`` timed on phase 7's render inputs beside K1;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
-bounds; phase 11's numbers under ``trainer``), the card's name and power
-limit, and the last line ``{"ok": true, "device": {...}}``.
+bounds; P1-P3: launches in phase 12's run of the probes; phase 11's
+numbers under ``trainer``, phase 12's under ``probes``), the card's name
+and power limit, and the last line ``{"ok": true, "device": {...}}``.
+Kernel times are torch.profiler's device time; a kernel it records no
+launch of after three sessions fails the run.
 """
 
 from __future__ import annotations
@@ -85,6 +103,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -116,6 +135,7 @@ from gstk_torch.ops.segment_kernel import (
 from gstk_torch.data.synthetic import ISECT_CAPACITY, generate_synthetic_dataset
 from gstk_torch.render.renderer import Renderer
 from gstk_torch.scripts.train import main as train_main
+from gstk_torch.tools import ablate_fwd, bench_dynrow, kernel_device_ms
 from gstk_torch.train.checkpoint import (
     save_scene,
     train_state_from_numpy,
@@ -124,8 +144,9 @@ from gstk_torch.train.checkpoint import (
 from gstk_torch.train.optim import OptimizerConfig
 from gstk_torch.train.step import init_train_state, make_train_step
 from gstk_torch.train.strategy import refine
+from gstk_torch.train.trainer import area_downscale, train_cache_bytes
 from gstk_torch.utils.colors import EVAL_BACKGROUND
-from gstk_torch.utils.io import read_ply_points, write_ply
+from gstk_torch.utils.io import read_png, read_ply_points, write_ply
 from gstk_torch.utils.profiler import PROFILER
 
 SEED = 0
@@ -231,35 +252,6 @@ def event_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def kernel_device_ms(fn, kernel_name, iters: int) -> dict:
-    """Device time of the CUDA kernel named ``kernel_name`` (every device
-    event when None) over ``iters`` calls of ``fn``, from torch.profiler:
-    ``ms`` the mean over the launches the profiler recorded,
-    ``ms_per_call`` the recorded total over ``iters`` and
-    ``profiler_launches`` the count recorded, which has been a few more and
-    a few fewer than the launches made on the card. Both times are None
-    when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if (kernel_name in e.key if kernel_name is not None
-                  else e.device_type == torch.autograd.DeviceType.CUDA)]
-    us = sum(e.self_device_time_total for e in events)
-    launches = sum(e.count for e in events)
-    print(f"  profiler: {launches} launches of {kernel_name or 'any kernel'} "
-          f"recorded for {iters} calls, {us / 1e3:.4f} ms in all")
-    if us <= 0:
-        return {"ms": None, "ms_per_call": None, "profiler_launches": launches}
-    return {"ms": us / 1e3 / launches, "ms_per_call": us / 1e3 / iters,
-            "profiler_launches": launches}
 
 
 def main() -> int:
@@ -644,6 +636,9 @@ def run(ckpt_dir: str) -> int:
 
     trainer_numbers = trainer_phase(Path(ckpt_dir), counters)
     trainer_numbers["bench_refine_ms"] = statistics.median(bench_refine_ms)
+    probe_kernels, probe_numbers = probes_phase(
+        (k1_rec, isect.gaussian_ids, isect.tile_bins, tiles[0]), k1["ms"],
+        k1_bytes, k1_ops)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -666,9 +661,7 @@ def run(ckpt_dir: str) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": step_launches[name],
             "max_abs_err": err, "max_err": err,
-            "ms": t["ms"] if t["ms"] is not None else t["wrapper_ms"],
-            "ms_source": "profiler" if t["ms"] is not None else "events",
-            "ms_per_call": t["ms_per_call"],
+            "ms": t["ms"], "ms_per_call": t["ms_per_call"],
             "profiler_launches": t["profiler_launches"], "profiler_calls": iters,
             "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
@@ -683,6 +676,7 @@ def run(ckpt_dir: str) -> int:
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
+    kernels.extend(probe_kernels)
     print(json.dumps({"kernels": kernels,
                       "train_tile_lengths": tile_lengths,
                       "train_kept_warp_entries": warp_entries,
@@ -693,7 +687,8 @@ def run(ckpt_dir: str) -> int:
                       "request_ms_min": min(ms),
                       "train_step_ms_median": statistics.median(ms_steps),
                       "train_step_ms_min": min(ms_steps),
-                      "trainer": trainer_numbers, "power": smi}))
+                      "trainer": trainer_numbers, "probes": probe_numbers,
+                      "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
@@ -801,6 +796,8 @@ def trainer_phase(work_dir: Path, counters) -> dict:
           f"{len(frames)} views (synchronized)")
 
     trainer_vs_plain(trainer)
+    cache_numbers = cache_check(trainer)
+    png_numbers = png_check(work_dir)
     refine_numbers = refine_check(trainer)
     grow_numbers = grow_check(trainer)
     loaded = [m for m in ("PIL", "cv2", "yaml") if m in sys.modules]
@@ -816,7 +813,7 @@ def trainer_phase(work_dir: Path, counters) -> dict:
             "eval_all_ms_per_view": statistics.median(eval_ms),
             "num_alive": [alive[0][1], alive[-1][1]],
             "eval_image_psnr": images, "final_eval_psnr": final_eval[1],
-            **refine_numbers, **grow_numbers}
+            **cache_numbers, **png_numbers, **refine_numbers, **grow_numbers}
 
 
 def trainer_vs_plain(trainer) -> None:
@@ -966,6 +963,219 @@ def grow_check(trainer) -> dict:
     return {"grew_in_run": grew, "grow_in_run_ms": in_run if grew else None,
             "grow_forced_ms": forced, "refine_max_capacity": cap,
             "refine_max_capacity_ms": statistics.median(ms)}
+
+
+def cache_check(trainer) -> dict:
+    """The d = 4 bucket of the trained split (gs-train's default
+    coarse-to-fine start; phase 11 trains at d = 1): built on the card
+    after the d = 1 bucket is dropped, with the device peak over the bytes
+    allocated before; the peak must stay under what the trainer's budget
+    check counts (``train_cache_bytes``), and the bucket must equal the
+    per-frame path and ``area_downscale`` of the whole stack bit for bit.
+    Beside it, how far the build before the repair (the uint8 stack
+    uploaded whole, divided by the host scalar 255, downscaled at once)
+    lies from it."""
+    frames = trainer.datamanager.train_frames
+    shape = frames[0].image.shape
+    checked = train_cache_bytes(len(frames), shape, 4,
+                                frames[0].mask is not None)
+    trainer._dev_cache = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, imgs, _ = trainer._device_train_cache(4)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = imgs.numel() * imgs.element_size()
+    stack_np = np.stack([f.image for f in frames])
+    full_stack = stack_np.size * 4
+    print(f"train cache at d = 4: {len(frames)} frames {shape} -> "
+          f"{tuple(imgs.shape)}, {build_ms:.1f} ms; device peak {peak / 2**20:.2f} "
+          f"MiB over the {base / 2**20:.1f} MiB before, bucket {kept / 2**20:.2f} "
+          f"MiB, checked {checked / 2**20:.2f} MiB, the full-resolution f32 "
+          f"stack {full_stack / 2**20:.2f} MiB")
+    assert peak <= checked, f"the build peaked at {peak} B over the {checked} B checked"
+    for i in (0, len(frames) - 1):
+        _, gt, _ = trainer._frame_to_device(frames[i], 4)
+        assert torch.equal(imgs[i], gt), f"bucket frame {i} differs from the per-frame path"
+    stack = torch.from_numpy(stack_np).to(DEVICE)
+    assert torch.equal(imgs, area_downscale(stack, 4)), (
+        "the bucket differs from area_downscale of the whole stack")
+    before = torch.from_numpy(np.rint(stack_np * 255).astype(np.uint8)).to(DEVICE)
+    before = area_downscale(before.to(torch.float32) / 255.0, 4)
+    diff = float((imgs - before).abs().max())
+    print(f"bucket equals the per-frame path and one product over the stack; "
+          f"the build before the repair differs by up to {diff:.3g}")
+    del stack, before, imgs
+    trainer._dev_cache = {}
+    return {"cache_d4": {"peak_bytes": peak, "checked_bytes": checked,
+                         "bucket_bytes": kept, "full_stack_bytes": full_stack,
+                         "build_ms": build_ms, "before_repair_max_diff": diff}}
+
+
+def png_check(work_dir: Path) -> dict:
+    """``read_png`` on an 800x800 RGB PNG of photo-like content whose rows
+    are all Paeth-filtered, built here with numpy and zlib (the card's
+    machine has no Pillow): bit-exact, and its host time (median of 3)."""
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:H, 0:W]
+    shade = 60.0 * np.sin(0.05 * xx + 0.03 * yy)[..., None] * [1.0, 0.8, 0.6]
+    img = np.clip(128 + shade + rng.normal(0, 2, (H, W, 3)), 0, 255).astype(np.uint8)
+    x = img.reshape(H, -1).astype(np.int16)
+    a = np.pad(x, ((0, 0), (3, 0)))[:, :-3]  # left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]  # up
+    c = np.pad(a, ((1, 0), (0, 0)))[:-1]  # up-left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((H, 1), 4, np.uint8),
+                           ((x - pred) % 256).astype(np.uint8)], axis=1)
+    chunk = lambda tag, data: (len(data).to_bytes(4, "big") + tag + data
+                               + zlib.crc32(tag + data).to_bytes(4, "big"))
+    path = work_dir / "paeth.png"
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", W.to_bytes(4, "big") + H.to_bytes(4, "big")
+                             + bytes([8, 2, 0, 0, 0]))
+                     + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                     + chunk(b"IEND", b""))
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = read_png(path)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    assert np.array_equal(got, img), "read_png differs on the Paeth PNG"
+    print(f"read_png, {W}x{H} RGB, every row Paeth: bit-exact, "
+          f"{[round(v, 2) for v in ms]} ms (host clock)")
+    return {"read_png_paeth_ms": statistics.median(ms)}
+
+
+def check_ablation(records, gids, bins, tiles_x, variants) -> dict:
+    """Each P1 clone in ``variants`` against its plain twin on the card
+    (rtol 1e-3 / atol 1e-4; ``dmaonly``, whose sum the twin takes in the
+    kernel's order, rtol 1e-6), ``full`` and ``marg_none`` against K1 and
+    ``noexit`` against ``full`` bit for bit. Returns each clone's largest
+    difference from its twin."""
+    xys, conics, op, colors = (records[:, 0:2], records[:, 2:5], records[:, 5],
+                               records[:, 6:6 + ablate_fwd.KERNEL_CH])
+    tiles = (tiles_x, bins.shape[0] // tiles_x)
+    k1_out = composite_tiles_fwd(xys, conics, op, colors, gids, bins, tiles,
+                                 records=records)
+    outs, errs = {}, {}
+    for variant in variants:
+        outs[variant] = ablate_fwd.run_variant(variant, records, gids, bins, tiles_x)
+        twin = ablate_fwd.ablate_fwd_plain(variant, records, gids, bins, tiles_x)
+        tol = dict(rtol=1e-6, atol=0.0) if variant == "dmaonly" else PARITY
+        for name, got, want in zip(("acc", "final_t"), outs[variant], twin):
+            assert_close(f"P1 {variant} {name}", got, want, **tol)
+        errs[variant] = max(float((g - w).abs().max())
+                            for g, w in zip(outs[variant], twin))
+    for variant, ref in (("full", k1_out), ("marg_none", k1_out),
+                         ("noexit", outs["full"])):
+        if variant in outs:
+            assert all(torch.equal(g, w) for g, w in zip(outs[variant], ref)), (
+                f"P1 {variant} is not bit-identical to its reference")
+    return errs
+
+
+def probes_phase(k1_render, k1_ms, k1_bytes, k1_ops):
+    """Phase 12: the probes' entry points with their launch counters reset
+    just before (P1 at the tool's two shapes, P2 and P3 at n = 2^20), then
+    P1's checks at both shapes and ``full``, ``noexit`` and ``dmaonly`` on
+    K1's render inputs ``k1_render`` (records, gids, tile bins, tiles_x)
+    beside K1's time. Returns the probes' ``kernels`` entries and the
+    numbers behind them."""
+    phase("12 probes: P1 K1 ablation clones, P2 and P3 row scatters")
+    counters = (ablate_fwd.run_variant, bench_dynrow.local_perm,
+                bench_dynrow.dynwrite)
+    for f in counters:
+        f.launches = 0
+    p1 = ablate_fwd.main(["--device", DEVICE])
+    p23 = bench_dynrow.main(["--device", DEVICE])
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counters}
+    print(f"launches in the probes' run: {launches}")
+    for name, n in launches.items():
+        assert n >= 1, f"{name} not launched by the probes"
+    assert sum(r["launches"] for r in p1.values()) == launches["run_variant"]
+
+    ch = ablate_fwd.KERNEL_CH
+    bound = lambda nbytes, ops: max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
+    bound_by = lambda nbytes, ops: ("bytes" if nbytes / HBM_BYTES_PER_S
+                                    >= ops / F32_FLOP_PER_S else "operations")
+    entries, numbers = [], {"p1": {}, "p23": {}}
+    for c_per_tile, shape in p1.items():
+        records, gids, bins, tiles_x = ablate_fwd.probe_scene(c_per_tile, device=DEVICE)
+        errs = check_ablation(records, gids, bins, tiles_x, ablate_fwd.VARIANTS)
+        tiles = (tiles_x, 1)
+        xys, conics, op, colors = (records[:, 0:2], records[:, 2:5], records[:, 5],
+                                   records[:, 6:6 + ch])
+        _, _, visited = composite_tiles_fwd_plain(xys, conics, op, colors, gids,
+                                                  bins, tiles)
+        pairs = int(visited.sum())
+        assert pairs == gids.shape[0] * 256, "a pixel of the probe scene stopped"
+        nbytes = (gids.shape[0] * (4 + 4 * (6 + ch)) + tiles_x * 8
+                  + tiles_x * 256 * (ch + 1) * 4)
+        ops = pairs * K1_FLOP_PER_PAIR
+        variants_ms = {v: t["ms"] for v, t in shape["variants"].items()}
+        plain_ms = event_ms(lambda: ablate_fwd.ablate_fwd_plain(
+            "full", records, gids, bins, tiles_x), 1)
+        label = f"T={tiles_x} C={c_per_tile}"
+        print(f"P1 {label}: every clone within its twin's tolerance "
+              f"{ {v: f'{e:.3g}' for v, e in errs.items()} }; full and "
+              f"marg_none equal K1, noexit equals full; {pairs} pairs; ms "
+              f"{ {v: round(m, 5) for v, m in variants_ms.items()} }")
+        entries.append({
+            "name": f"ablate_fwd {label}", "route": "cuda",
+            "source": "gstk_torch/csrc/ablate_fwd.cu",
+            "replaces": "tools/ablate_fwd.py:34", "launches": shape["launches"],
+            "max_abs_err": errs["full"], "max_err": max(errs.values()),
+            "ms": variants_ms["full"], "variants_ms": variants_ms,
+            "plain_ms": plain_ms, "bound_ms": bound(nbytes, ops),
+            "bound_by": bound_by(nbytes, ops), "bytes": nbytes,
+            "operations": ops, "library_ms": None,
+        })
+        numbers["p1"][label] = {"variants_ms": variants_ms, "errors": errs,
+                                "pairs": pairs}
+
+    # K1's gap at the render point: staging floor and loop control
+    records, gids, bins, tiles_x = k1_render
+    render_vars = ("full", "noexit", "dmaonly")
+    errs = check_ablation(records, gids, bins, tiles_x, render_vars)
+    render_ms = {v: kernel_device_ms(
+        lambda v=v: ablate_fwd.run_variant(v, records, gids, bins, tiles_x),
+        "ablate_fwd_kernel", 20)["ms"] for v in render_vars}
+    gap = {"k1_ms": k1_ms, "variants_ms": render_ms, "errors": errs,
+           "bound_ms": bound(k1_bytes, k1_ops),
+           "staging_share": render_ms["dmaonly"] / render_ms["full"],
+           "noexit_minus_full_ms": render_ms["noexit"] - render_ms["full"]}
+    print(f"P1 at the render point: {gap}")
+    numbers["p1"]["render point"] = gap
+
+    for tag, r in p23.items():
+        if tag == "A_gather":
+            numbers["p23"][tag] = {"ms": r["library"]["ms"]}
+            continue
+        R, rows = r["case"]
+        n = bench_dynrow.ROWS_CARD
+        nbytes = n * bench_dynrow.ROW * 4 * 2 + n // rows * 4
+        kind, label = (("local_perm", f"R={R} g={rows}") if tag.startswith("B")
+                       else ("dynwrite", f"R={R} W={rows}"))
+        entries.append({
+            "name": f"{kind} {label}", "route": "cuda",
+            "source": "gstk_torch/csrc/dynrow.cu",
+            "replaces": ("tools/bench_dynrow.py:103" if kind == "local_perm"
+                         else "tools/bench_dynrow.py:193"),
+            "launches": r["launches"], "max_abs_err": 0.0, "max_err": 0.0,
+            "ms": r["kernel"]["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound(nbytes, 0), "bound_by": "bytes", "bytes": nbytes,
+            "operations": 0, "library_ms": r["library"]["ms"],
+            "gather_ms": p23["A_gather"]["library"]["ms"],
+        })
+        numbers["p23"][tag] = {k: entries[-1][k] for k in
+                               ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"P2 / P3 (ms): {numbers['p23']}")
+    return entries, numbers
 
 
 def kept_warp_entries(fwd_args) -> dict:

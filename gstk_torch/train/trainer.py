@@ -155,9 +155,14 @@ def _quantize_cache_images(imgs_np: np.ndarray, device: DeviceLike = None
 
 
 def _dequantize_image(img: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``_quantize_cache_images`` for one indexed frame."""
+    """Inverse of ``_quantize_cache_images`` for one indexed frame. The
+    divisor is a tensor on the image's device: on the card a tensor
+    divided by a host scalar is multiplied by its reciprocal, which misses
+    n / 255 by an ulp for about half the bytes, and the cache must give
+    back exactly the image it was given."""
     if img.dtype == torch.uint8:
-        return img.to(torch.float32) / 255.0
+        return img.to(torch.float32).div_(
+            torch.full((), 255.0, dtype=torch.float32, device=img.device))
     return img
 
 
@@ -192,6 +197,36 @@ def area_downscale(images: torch.Tensor, d: int) -> torch.Tensor:
         for n in (h, w)
     )
     return torch.einsum("yh,...hwc,xw->...yxc", wy, images, wx)
+
+
+def train_cache_bytes(n: int, shape, d: int, has_mask: bool) -> int:
+    """The device bytes the train cache of ``n`` frames of ``shape`` (H, W,
+    C) reaches while it is built at downscale ``d``: the f32 bucket and the
+    masks it keeps and, for d > 1, one full-resolution f32 frame three
+    times over (the upload and ``area_downscale``'s copy and
+    intermediates, which are no larger)."""
+    h, w, c = shape[0], shape[1], shape[2] if len(shape) > 2 else 1
+    kept = n * (h // d) * (w // d) * (c * 4 + (1 if has_mask else 0))
+    if d == 1:
+        return kept
+    return kept + 3 * h * w * c * 4
+
+
+def _cache_images(frames, d: int, device) -> torch.Tensor:
+    """The cached GT of ``frames`` at downscale d on ``device``: the
+    (losslessly quantized) stack at d = 1; at d > 1 the f32 bucket, filled
+    one frame at a time as the per-frame path makes each (uploaded, then
+    downscaled on the device), so the full-resolution stack is never
+    there."""
+    if d == 1:
+        return _quantize_cache_images(np.stack([f.image for f in frames]),
+                                      device)
+    h, w, c = frames[0].image.shape
+    out = torch.empty((len(frames), h // d, w // d, c), dtype=torch.float32,
+                      device=device)
+    for i, frame in enumerate(frames):
+        out[i] = area_downscale(torch.from_numpy(frame.image).to(device), d)
+    return out
 
 
 def _stack_cameras(frames, d: int, device) -> Camera:
@@ -309,35 +344,33 @@ class Trainer:
     def _device_train_cache(self, d: int):
         """(cameras, images, masks) of the whole train split at downscale
         d, on the device; None (the per-frame path) when frames have mixed
-        shapes or the bucket exceeds ``config.device_data_cache_mb``. Only
-        the current coarse-to-fine bucket is kept: ``downscale_factor``
-        never increases with the step."""
+        shapes or the device bytes the build reaches
+        (:func:`train_cache_bytes`) exceed ``config.device_data_cache_mb``.
+        Only the current coarse-to-fine bucket is kept: ``downscale_factor``
+        never increases with the step, so the earlier bucket is dropped
+        before the new one is built."""
         if d in self._dev_cache:
             return self._dev_cache[d]
         budget = self.config.device_data_cache_mb
         frames = self.datamanager.train_frames
         shape0 = frames[0].image.shape if frames else None
         cache = None
+        self._dev_cache = {}
         if (budget > 0 and frames
-                and all(f.image.shape == shape0 for f in frames)):
+                and all(f.image.shape == shape0 for f in frames)
+                and train_cache_bytes(len(frames), shape0, d,
+                                      frames[0].mask is not None)
+                <= budget * (1 << 20)):
             h, w = shape0[0] // d, shape0[1] // d
-            has_mask = frames[0].mask is not None
-            n = len(frames)
-            bytes_needed = n * h * w * 3 * 4 + (n * h * w if has_mask else 0)
-            if bytes_needed <= budget * (1 << 20):
-                imgs = _quantize_cache_images(
-                    np.stack([f.image for f in frames]), self.device
-                )
-                if d > 1:
-                    imgs = area_downscale(_dequantize_image(imgs), d)
-                masks = (
-                    torch.from_numpy(np.stack(
-                        [f.mask[::d, ::d][:h, :w] for f in frames]
-                    )).to(self.device)
-                    if has_mask else None
-                )
-                cache = (_stack_cameras(frames, d, self.device), imgs, masks)
-        self._dev_cache = {d: cache}  # drop earlier buckets
+            masks = (
+                torch.from_numpy(np.stack(
+                    [f.mask[::d, ::d][:h, :w] for f in frames]
+                )).to(self.device)
+                if frames[0].mask is not None else None
+            )
+            cache = (_stack_cameras(frames, d, self.device),
+                     _cache_images(frames, d, self.device), masks)
+        self._dev_cache = {d: cache}
         return cache
 
     def _frame_to_device(self, frame: CachedFrame, d: int):

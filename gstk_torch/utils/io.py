@@ -212,27 +212,88 @@ def _png_chunks(data: bytes):
 
 def _unfilter_row(kind: int, line: np.ndarray, prior: np.ndarray,
                   bpp: int) -> np.ndarray:
-    """One reconstructed scanline (uint8) from its filtered bytes."""
+    """One reconstructed scanline (uint8) from its filtered bytes, for the
+    filter types that need no left-to-right walk (None, Sub, Up)."""
     if kind == 0:  # None
         return line
     if kind == 1:  # Sub: a running sum per byte of the pixel, mod 256
         return line.reshape(-1, bpp).cumsum(0, dtype=np.uint8).reshape(-1)
-    if kind == 2:  # Up
-        return line + prior
-    if kind not in (3, 4):
-        raise ValueError(f"PNG filter type {kind} is not defined")
-    cur, up = bytearray(line.tobytes()), prior.tobytes()
-    for i in range(len(cur)):
-        a = cur[i - bpp] if i >= bpp else 0
-        if kind == 3:  # Average
-            pred = (a + up[i]) >> 1
-        else:  # Paeth
-            b, c = up[i], (up[i - bpp] if i >= bpp else 0)
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        cur[i] = (cur[i] + pred) & 0xFF
-    return np.frombuffer(bytes(cur), np.uint8)
+    return line + prior  # Up
+
+
+def _predict(kind: int, a, b, c):
+    """PNG filter ``kind``'s predictor from the left, up and up-left bytes
+    (int16 arrays)."""
+    if kind == 0:
+        return 0
+    if kind == 1:
+        return a
+    if kind == 2:
+        return b
+    if kind == 3:
+        return (a + b) >> 1
+    # Paeth: p = a + b - c; the byte of a, b, c nearest p, in that order
+    bc, ac = b - c, a - c  # p - a, p - b
+    pa, pb, pc = np.abs(bc), np.abs(ac), np.abs(ac + bc)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter_wavefront(kinds: np.ndarray, lines: np.ndarray,
+                        prior: np.ndarray, bpp: int) -> np.ndarray:
+    """Reconstructed rows (uint8, (H, stride)) of any filter types after
+    the row ``prior``, in H + W numpy steps.
+
+    Byte (r, x) of pixel x depends on (r, x - 1), (r - 1, x) and (r - 1,
+    x - 1) only, so every pixel of an anti-diagonal r + x = s can be
+    reconstructed at once from the two diagonals before it. The rows are
+    stored skewed, cell (r, x) at ``grid[r + x, r]`` (with the prior row
+    as r = 0 and a zero column as x = 0), so that each diagonal and its
+    three neighbours are plain slices; each row's filter type selects its
+    predictor, and only the predictors of the types present are
+    computed."""
+    height, stride = lines.shape
+    width = stride // bpp
+    rr = np.arange(1, height + 1)[:, None]
+    xx = np.arange(1, width + 1)[None, :]
+    grid = np.zeros((height + width + 1, height + 1, bpp), np.int16)
+    raw = np.zeros_like(grid)
+    raw[rr + xx, rr] = lines.reshape(height, width, bpp)
+    grid[np.arange(1, width + 1), 0] = prior.reshape(width, bpp)
+    kind = np.concatenate([[0], kinds])[:, None]
+    used = [int(k) for k in np.unique(kinds)]
+    for s in range(2, height + width + 1):
+        lo, hi = max(1, s - width), min(height, s - 1) + 1
+        a = grid[s - 1, lo:hi]  # left
+        b = grid[s - 1, lo - 1:hi - 1]  # up
+        c = grid[s - 2, lo - 1:hi - 1]  # up-left
+        if len(used) == 1:
+            pred = _predict(used[0], a, b, c)
+        else:
+            pred = 0
+            for k in used:
+                pred = np.where(kind[lo:hi] == k, _predict(k, a, b, c), pred)
+        grid[s, lo:hi] = (raw[s, lo:hi] + pred) & 0xFF
+    return grid[rr + xx, rr].astype(np.uint8).reshape(height, stride)
+
+
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """The image bytes (H, stride) from the filtered scanlines (H, 1 +
+    stride): row by row up to the first Average or Paeth row, whose
+    left-to-right dependence a row-at-a-time numpy pass cannot follow, and
+    from there by :func:`_unfilter_wavefront`."""
+    kinds = rows[:, 0]
+    if kinds.size and int(kinds.max()) > 4:
+        raise ValueError(f"PNG filter type {int(kinds.max())} is not defined")
+    out = np.empty((rows.shape[0], rows.shape[1] - 1), np.uint8)
+    walk = np.flatnonzero(kinds >= 3)
+    first = int(walk[0]) if walk.size else rows.shape[0]
+    prior = np.zeros(out.shape[1], np.uint8)
+    for y in range(first):
+        prior = out[y] = _unfilter_row(int(kinds[y]), rows[y, 1:], prior, bpp)
+    if first < rows.shape[0]:
+        out[first:] = _unfilter_wavefront(kinds[first:], rows[first:, 1:],
+                                          prior, bpp)
+    return out
 
 
 def read_png(path) -> np.ndarray:
@@ -265,10 +326,7 @@ def read_png(path) -> np.ndarray:
     stride = width * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
-    out = np.empty((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        prior = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prior, bpp)
+    out = _unfilter(rows, bpp)
     if depth == 16:
         out = out.view(">u2").astype(np.uint16)
     return out.reshape((height, width) if channels == 1

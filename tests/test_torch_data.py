@@ -110,6 +110,78 @@ def test_png_reads_every_filter_type(tmp_path):
     np.testing.assert_array_equal(tio.read_png(path), img)
 
 
+def _photo(rng, h, w, channels, top=256):
+    """Photo-like content: smooth sinusoidal shading with mild noise."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    field = sum(rng.uniform(20, 60) * np.sin(rng.uniform(0.02, 0.2) * xx
+                                             + rng.uniform(0.02, 0.2) * yy
+                                             + rng.uniform(0, 6))
+                for _ in range(4))
+    tint = rng.uniform(0.5, 1.0, channels)
+    img = 128 + field[..., None] * tint + rng.normal(0, 1, (h, w, channels))
+    img = np.clip(img * (top // 256), 0, top - 1)
+    return img[..., 0] if channels == 1 else img
+
+
+def _filter_types(path):
+    """The filter type of every row of a PNG file."""
+    data = path.read_bytes()
+    width, height, depth, colour = struct.unpack(">IIBB", data[16:26])
+    idat = b"".join(body for tag, body in tio._png_chunks(data) if tag == b"IDAT")
+    stride = width * {0: 1, 2: 3, 4: 2, 6: 4}[colour] * depth // 8
+    return np.frombuffer(zlib.decompress(idat), np.uint8)[::stride + 1][:height]
+
+
+def test_png_reads_pillow_photo_with_paeth_rows(tmp_path):
+    """800x600 photo-like RGB: Pillow's adaptive filtering writes most rows
+    Paeth; the file reads bit-exact."""
+    img = _photo(np.random.default_rng(3), 600, 800, 3).astype(np.uint8)
+    path = tmp_path / "photo.png"
+    Image.fromarray(img).save(path)
+    kinds = _filter_types(path)
+    assert (kinds == 4).sum() > len(kinds) // 2
+    got = tio.read_png(path)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(path)))
+    np.testing.assert_array_equal(got, img)
+
+
+@pytest.mark.parametrize("layout", ["rgb8", "rgba8", "grey16"])
+@pytest.mark.parametrize("rows", ["average", "paeth", "mixed"])
+def test_png_reads_average_and_paeth_rows(tmp_path, layout, rows):
+    """Photo-like images filtered by hand (Pillow does not choose Average):
+    every row Average, every row Paeth, or all five types in random order
+    after rows of None, Sub and Up; Pillow decodes the file as the
+    reference."""
+    rng = np.random.default_rng(4)
+    h, w = 45, 67
+    channels, depth, colour = {"rgb8": (3, 8, 2), "rgba8": (4, 8, 6),
+                               "grey16": (1, 16, 0)}[layout]
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = _photo(rng, h, w, channels, 1 << depth).astype(dtype)
+    lines = np.ascontiguousarray(img, ">u2" if depth == 16 else np.uint8)
+    lines = lines.view(np.uint8).reshape(h, -1)
+    bpp = channels * depth // 8
+    kinds = {"average": [3] * h, "paeth": [4] * h,
+             "mixed": [0, 1, 2] + list(rng.integers(0, 5, h - 3))}[rows]
+    out, prior = [], np.zeros(lines.shape[1], np.uint8)
+    for y in range(h):
+        out.append(bytes([kinds[y]])
+                   + _filter_row(kinds[y], lines[y], prior, bpp).tobytes())
+        prior = lines[y]
+    chunk = lambda tag, data: (struct.pack(">I", len(data)) + tag + data
+                               + struct.pack(">I", zlib.crc32(tag + data)))
+    path = tmp_path / "filtered.png"
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                                  colour, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(b"".join(out)))
+                     + chunk(b"IEND", b""))
+    np.testing.assert_array_equal(_filter_types(path), kinds)
+    got = tio.read_png(path)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(path)))
+    np.testing.assert_array_equal(got, img)
+
+
 @pytest.mark.parametrize("loader", ["load_image", "load_depth", "load_mask"])
 def test_loaders_match_jax(loader, tmp_path):
     rng = np.random.default_rng(2)

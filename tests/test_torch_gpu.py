@@ -38,6 +38,7 @@ from gstk_torch.ops.raster_cuda import (
     composite_tiles_bwd_plain,
     composite_tiles_fwd,
     composite_tiles_fwd_plain,
+    pack_records,
 )
 from gstk_torch.ops.segment_kernel import (
     segment_broadcast,
@@ -397,3 +398,137 @@ def test_refine_cuda_matches_cpu(cuda, step):
     for k, v in want.items():
         atol = means_atol if k == ".scene/.means" else 1e-7
         np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=atol, err_msg=k)
+
+
+# probe P1: K1's ablation clones (gstk_torch/tools/ablate_fwd.py)
+def _ablate_check(cuda, records, gids, bins, tiles_x):
+    """Every clone against its twin (parity tolerances; dmaonly, whose sum
+    takes the twin's order, rtol 1e-6); full and marg_none against K1 and
+    noexit against full, bit for bit."""
+    from gstk_torch.tools import ablate_fwd
+
+    xys, conics, op, colors = (records[:, 0:2], records[:, 2:5], records[:, 5],
+                               records[:, 6:10])
+    tiles = (tiles_x, bins.shape[0] // tiles_x)
+    k1 = composite_tiles_fwd(xys, conics, op, colors, gids, bins, tiles,
+                             records=records)
+    outs = {}
+    for variant in ablate_fwd.VARIANTS:
+        before = ablate_fwd.run_variant.launches
+        outs[variant] = ablate_fwd.run_variant(variant, records, gids, bins,
+                                               tiles_x)
+        assert ablate_fwd.run_variant.launches == before + 1
+        twin = ablate_fwd.ablate_fwd_plain(variant, records, gids, bins,
+                                           tiles_x)
+        tol = dict(rtol=1e-6, atol=0.0) if variant == "dmaonly" else PARITY
+        for got, want in zip(outs[variant], twin):
+            torch.testing.assert_close(got, want, **tol)
+    for variant, ref in (("full", k1), ("marg_none", k1),
+                         ("noexit", outs["full"])):
+        for got, want in zip(outs[variant], ref):
+            assert torch.equal(got, want), variant
+
+
+@pytest.mark.parametrize("c_per_tile", [1, 16])
+def test_ablate_kernels_on_the_probe_scene(cuda, c_per_tile):
+    from gstk_torch.tools.ablate_fwd import probe_scene
+
+    _ablate_check(cuda, *probe_scene(c_per_tile, 64, 4, 0, cuda))
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_ablate_kernels_on_tile_cases(cuda, case):
+    (xys, conics, op, colors, gids, bins, tiles), _ = _tile_case(cuda, 4, case)
+    records = pack_records(xys, conics, op, colors)
+    _ablate_check(cuda, records, gids, bins, tiles[0])
+
+
+def test_ablate_kernel_takes_ch_4_only(cuda):
+    from gstk_torch.tools import ablate_fwd
+
+    records, gids, bins, tiles_x = ablate_fwd.probe_scene(1, 2, 3, 0, cuda)
+    with pytest.raises(ValueError, match="ch 4"):
+        ablate_fwd.run_variant("full", records, gids, bins, tiles_x, 3)
+
+
+# probes P2 and P3: row scatters (gstk_torch/tools/bench_dynrow.py)
+@pytest.mark.parametrize("case", [("perm", 4096, 8), ("perm", 4096, 1),
+                                  ("perm", 512, 8), ("perm", 512, 2),
+                                  ("dynwrite", 4096, 64), ("dynwrite", 4096, 8),
+                                  ("dynwrite", 4096, 256), ("dynwrite", 512, 1)])
+def test_dynrow_kernels_equal_twins(cuda, case):
+    """Bit for bit against the plain twin and the library call, at n = 2^15
+    rows; then with some indices out of range, which every version drops."""
+    from gstk_torch.tools import bench_dynrow as dr
+
+    kind, R, rows = case
+    n = 1 << 15
+    g = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn((n, 128), generator=g, device=cuda)
+    nb, per = n // R, R // rows
+    if kind == "perm":
+        fn, plain = dr.local_perm, dr.local_perm_plain
+        index = torch.argsort(torch.rand((nb, per), generator=g, device=cuda),
+                              dim=1).int()
+        dest = dr.perm_destinations(index, R, rows)
+    else:
+        fn, plain = dr.dynwrite, dr.dynwrite_plain
+        index = torch.randperm(n // rows, generator=g, device=cuda)
+        index = index.int().reshape(nb, per)
+        dest = index.reshape(-1).long()
+    before = fn.launches
+    got = fn(table, index, R, rows)
+    assert fn.launches == before + 1
+    assert torch.equal(got, plain(table, index, R, rows))
+    assert torch.equal(got, dr.index_copy_rows(torch.empty_like(table), dest,
+                                               table, rows))
+    bad = index.clone()
+    bad.view(-1)[::7] = -1
+    bad.view(-1)[3::7] = per if kind == "perm" else n // rows
+    got, want = fn(table, bad, R, rows), plain(table, bad, R, rows)
+    hit = torch.zeros(n // rows, dtype=torch.bool, device=cuda)
+    ok = (bad >= 0) & (bad < (per if kind == "perm" else n // rows))
+    bad_dest = (bad.reshape(-1).long() if kind == "dynwrite"
+                else dr.perm_destinations(bad.clamp(0, per - 1), R, rows))
+    hit[bad_dest[ok.view(-1)]] = True
+    hit = hit.repeat_interleave(rows)
+    assert bool(hit.any()) and not bool(hit.all())
+    assert torch.equal(got[hit], want[hit])
+
+
+def test_train_cache_build_on_the_card(cuda, tmp_path):
+    """24 frames of 800x800 RGBA: the d = 4 bucket built frame by frame on
+    the card equals the per-frame path and ``area_downscale`` of the whole
+    stack bit for bit, and the device peak of the build stays under
+    ``train_cache_bytes``; a uint8 frame dequantizes to n / 255 exactly."""
+    import types
+
+    from gstk_torch.data.datamanager import CachedFrame
+    from gstk_torch.train import trainer as trainer_mod
+
+    u8 = torch.arange(256, dtype=torch.uint8, device=cuda)
+    np.testing.assert_array_equal(
+        trainer_mod._dequantize_image(u8).cpu().numpy(),
+        np.arange(256, dtype=np.float32) / np.float32(255))
+    rng = np.random.default_rng(0)
+    frames = [CachedFrame(
+        image=rng.integers(0, 256, (800, 800, 4)).astype(np.float32) / np.float32(255),
+        fx=1000.0, fy=1000.0, cx=400.0, cy=400.0,
+        c2w=np.eye(4, dtype=np.float32)[:3]) for _ in range(24)]
+    trainer = trainer_mod.Trainer(trainer_mod.TrainerConfig(), device=cuda)
+    trainer.datamanager = types.SimpleNamespace(train_frames=frames)
+    # the process's first matrix product allocates cuBLAS's workspace, once
+    # and for good: not a byte of the build
+    trainer_mod.area_downscale(torch.zeros((8, 8, 4), device=cuda), 4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, imgs, _ = trainer._device_train_cache(4)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= trainer_mod.train_cache_bytes(24, (800, 800, 4), 4, False)
+    for i in (0, 5, 23):
+        _, gt, _ = trainer._frame_to_device(frames[i], 4)
+        assert torch.equal(imgs[i], gt)
+    stack = torch.from_numpy(np.stack([f.image for f in frames])).to(cuda)
+    assert torch.equal(imgs, trainer_mod.area_downscale(stack, 4))

@@ -16,6 +16,7 @@ threshold may fall either way; the count is printed), and the final
 
 import dataclasses
 import json
+import types
 
 import jax
 import numpy as np
@@ -31,10 +32,12 @@ from gstk_tpu.train.trainer import Trainer as JTrainer
 from gstk_tpu.train.trainer import TrainerConfig as JTrainerConfig
 from gstk_torch.configs.methods import method_configs
 from gstk_torch.core.gaussians import grow_scene
+from gstk_torch.data.datamanager import CachedFrame
 from gstk_torch.data.dataparser import DataparserConfig
 from gstk_torch.data.synthetic import generate_synthetic_dataset
 from gstk_torch.models.vanilla import VanillaConfig
 from gstk_torch.train import checkpoint as ckpt
+from gstk_torch.train import trainer as trainer_mod
 from gstk_torch.train.step import init_train_state
 from gstk_torch.train.trainer import (
     Trainer,
@@ -219,6 +222,84 @@ def test_cache_quantization_lossless_roundtrip():
     cached2 = _quantize_cache_images(hdr, "cpu")
     assert cached2.dtype == torch.float32
     assert np.array_equal(_dequantize_image(cached2[0]).numpy(), hdr[0])
+
+
+def _frames(n, h, w, lossless=True, seed=0):
+    """``n`` frames of 8-bit content in f32 (off the 8-bit grid when not
+    ``lossless``) with masks, as the datamanager caches them."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for _ in range(n):
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.float32) / np.float32(255)
+        if not lossless:
+            img = img + np.float32(1e-4)
+        frames.append(CachedFrame(
+            image=img, fx=50.0, fy=51.0, cx=w / 2, cy=h / 2,
+            c2w=np.eye(4, dtype=np.float32)[:3],
+            mask=rng.uniform(size=(h, w)) < 0.8))
+    return frames
+
+
+def _cache_trainer(tmp_path, frames, cache_mb=4096):
+    """A trainer on the CPU whose train split is ``frames``."""
+    cfg = dataclasses.replace(_config(tmp_path / "data", tmp_path / "out"),
+                              device_data_cache_mb=cache_mb)
+    trainer = Trainer(cfg, device="cpu")
+    trainer.datamanager = types.SimpleNamespace(train_frames=frames)
+    return trainer
+
+
+@pytest.mark.parametrize("lossless", [True, False])
+def test_train_cache_downscales_frame_by_frame(tmp_path, monkeypatch, lossless):
+    """The d = 4 bucket equals the batched build (the whole stack quantized,
+    uploaded, dequantized and downscaled by one product) and the per-frame
+    path bit for bit, and every input of the build is one frame."""
+    frames = _frames(7, 64, 48, lossless)
+    down = trainer_mod.area_downscale
+    seen = []
+
+    def recorded(x, d):
+        seen.append(tuple(x.shape))
+        return down(x, d)
+
+    monkeypatch.setattr(trainer_mod, "area_downscale", recorded)
+    trainer = _cache_trainer(tmp_path, frames)
+    cams, imgs, masks = trainer._device_train_cache(4)
+    assert seen == [(64, 48, 3)] * 7  # one frame at a time
+    stack = np.stack([f.image for f in frames])
+    want = down(_dequantize_image(_quantize_cache_images(stack, "cpu")), 4)
+    assert imgs.dtype == torch.float32 and torch.equal(imgs, want)
+    for i in (0, 6):
+        assert torch.equal(imgs[i], trainer._frame_to_device(frames[i], 4)[1])
+    np.testing.assert_array_equal(
+        masks.numpy(), np.stack([f.mask[::4, ::4] for f in frames]))
+    np.testing.assert_array_equal(cams.fx.numpy(), np.full(7, 12.5, np.float32))
+
+
+def test_train_cache_at_full_resolution_is_the_quantized_stack(tmp_path):
+    frames = _frames(3, 16, 12)
+    _, imgs, _ = _cache_trainer(tmp_path, frames)._device_train_cache(1)
+    assert imgs.dtype == torch.uint8
+    want = _quantize_cache_images(np.stack([f.image for f in frames]), "cpu")
+    assert torch.equal(imgs, want)
+    assert torch.equal(_dequantize_image(imgs[1]), torch.from_numpy(frames[1].image))
+
+
+def test_train_cache_gates_on_the_build_peak(tmp_path):
+    """Two frames of 256x256 with masks and a 2 MiB budget: the d = 4
+    bucket (0.1 MiB) fits, but its build (a full-resolution f32 frame three
+    times over, 2.25 MiB more) does not, so d = 4 takes the per-frame
+    path; the d = 1 bucket (1.6 MiB, built with no downscale) is cached."""
+    frames = _frames(2, 256, 256)
+    shape = frames[0].image.shape
+    assert trainer_mod.train_cache_bytes(2, shape, 4, True) > 2 << 20
+    assert trainer_mod.train_cache_bytes(2, shape, 1, True) < 2 << 20
+    trainer = _cache_trainer(tmp_path, frames, cache_mb=2)
+    assert trainer._device_train_cache(1) is not None
+    assert trainer._device_train_cache(4) is None
+    assert list(trainer._dev_cache) == [4]  # the d = 1 bucket was dropped
+    camera, gt, mask = trainer._train_inputs(1, frames[1], 4)
+    assert gt.shape == (64, 64, 3) and mask.shape == (64, 64)
 
 
 def _flat(path):
