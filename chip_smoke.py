@@ -1,11 +1,13 @@
-"""Drive gstk_torch's render and train paths on one CUDA card and check them.
+"""Drive gstk_torch's render, train, eval and export paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
 Phases, each printed as it runs; any failure exits non-zero before the last
 line:
   1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off
-     (matmul and cuDNN, so SSIM's conv2d runs in f32);
+     for matmul and cuDNN in this process (the package's convolutions run
+     in f32 either way; phase 13's subprocess keeps PyTorch's defaults);
   2. build: compile the CUDA kernels (``gstk_torch/csrc``) for sm_90a and
      print nvcc's register / shared-memory / spill report and the resident
      CTAs per SM of K1 and K2 (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
@@ -85,17 +87,43 @@ line:
      ``dmaonly`` rtol 1e-6), ``full`` and ``marg_none`` against K1 and
      ``noexit`` against ``full`` bit for bit, and ``full``, ``noexit`` and
      ``dmaonly`` timed on phase 7's render inputs beside K1;
+  13. back end, on phase 11's run directory (its step-400 checkpoint),
+     through the CLIs' ``main``: gs-eval (``--skip-lpips``) launches K1 and
+     K3 once a view and equals the trainer's final eval (PSNR rtol 1e-4,
+     SSIM atol 1e-4), as do ``--force-host-loop`` and a fresh ``python -m
+     gstk_torch.scripts.eval`` process under PyTorch's default TF32 flags;
+     its device loop timed and one view traced; SSIM of one view with
+     cuDNN's TF32 against f32; gs-eval with random LPIPS weights written as
+     an npz gives a finite LPIPS, and LPIPS on a 128x128 crop of one pair
+     on the card equals the CPU's (rtol 1e-4); gs-render ``pose`` writes
+     21 rgb and depth PNGs, each equal to the Renderer's output quantized
+     alike, and ``poses.json``; gs-render ``trajectory`` renders 8 poses at
+     1920x1080 in four bands, K1 and K3 four times a frame, each band's
+     tile ranges ordered and ending at its intersection count, one frame
+     against the plain twins (phase 6's tolerances, 0.1% of values
+     outside), frames timed and one traced; gs-export ``gaussian-splat``
+     byte for byte ``--device cpu``'s, ``camera-poses``, ``point-cloud``,
+     ``offline-tsdf`` at its defaults (200^3 voxels) with marching
+     tetrahedra, and with Poisson, ``--clean`` and ``--mask-method
+     threshold``, each mesh non-empty; the fused volume on the card against
+     the CPU on the same frames (tsdf and colors within atol 1e-5 on all
+     but 0.1% of voxels, weights equal outside them), integration, Poisson
+     and marching tetrahedra timed; Pillow, OpenCV, PyYAML, torchvision and
+     transformers stay unimported;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
 bounds; P1-P3: launches in phase 12's run of the probes; phase 11's
-numbers under ``trainer``, phase 12's under ``probes``), the card's name
-and power limit, and the last line ``{"ok": true, "device": {...}}``.
+numbers under ``trainer``, phase 12's under ``probes``, phase 13's, K1 and
+K3 launches a view and a frame included, under ``backend``), the card's
+name and power limit, and the last line ``{"ok": true, "device": {...}}``.
 Kernel times are torch.profiler's device time; a kernel it records no
 launch of after three sessions fails the run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import statistics
@@ -112,7 +140,12 @@ import torch
 from gstk_torch import _build
 from gstk_torch.core.cameras import Camera
 from gstk_torch.core.gaussians import init_scene, scene_from_numpy, scene_to_numpy
-from gstk_torch.models.vanilla import VanillaConfig, rgb_loss, splat_inputs
+from gstk_torch.models.vanilla import (
+    VanillaConfig,
+    composite_gt_with_background,
+    rgb_loss,
+    splat_inputs,
+)
 from gstk_torch.ops.binning import bin_gaussians, expansion_positions
 from gstk_torch.ops.projection import tight_extents, tile_bbox
 from gstk_torch.ops.raster_cuda import (
@@ -132,8 +165,15 @@ from gstk_torch.ops.segment_kernel import (
     segment_sum_sorted,
     segment_sum_sorted_plain,
 )
+from gstk_torch.configs.serialize import load_config
+from gstk_torch.data.datamanager import FullImageDatamanager
 from gstk_torch.data.synthetic import ISECT_CAPACITY, generate_synthetic_dataset
+from gstk_torch.exporter.poisson import poisson_indicator
+from gstk_torch.exporter.tsdf import integrate_frames, make_volume, marching_tetrahedra
 from gstk_torch.render.renderer import Renderer
+from gstk_torch.scripts import eval as eval_cli
+from gstk_torch.scripts import export as export_cli
+from gstk_torch.scripts import render as render_cli
 from gstk_torch.scripts.train import main as train_main
 from gstk_torch.tools import ablate_fwd, bench_dynrow, kernel_device_ms
 from gstk_torch.train.checkpoint import (
@@ -146,7 +186,9 @@ from gstk_torch.train.step import init_train_state, make_train_step
 from gstk_torch.train.strategy import refine
 from gstk_torch.train.trainer import area_downscale, train_cache_bytes
 from gstk_torch.utils.colors import EVAL_BACKGROUND
-from gstk_torch.utils.io import read_png, read_ply_points, write_ply
+from gstk_torch.utils import losses
+from gstk_torch.utils.io import read_ply, read_png, read_ply_points, write_ply
+from gstk_torch.utils.lpips import lpips, random_lpips_params
 from gstk_torch.utils.profiler import PROFILER
 
 SEED = 0
@@ -181,6 +223,16 @@ SEED_POINTS, SEED_JITTER = N_POINTS, 0.05
 TRAIN_ITERS = 400
 REFINE_TIMES = 5  # synchronized refine calls timed, median reported
 REFINE_STEP = 1000  # phase 10's refine: past warmup, densifying
+# phase 13: gs-eval against the trainer's eval (PSNR rtol, SSIM atol)
+EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-4
+LPIPS_CROP = 128  # LPIPS on the card against the CPU on this square of a pair
+# gs-render trajectory: 8 poses at the camera path's default size, which
+# the Renderer splits into ceil(1920 * 1080 / 640,000) = 4 bands
+TRAJ_POSES, TRAJ_W, TRAJ_H, TRAJ_BANDS = 8, 1920, 1080, 4
+# gs-export offline-tsdf's defaults: a 2 m cube of 1 cm voxels (200^3)
+TSDF_SIZE, TSDF_VOXEL, TSDF_TRUNC, POISSON_ITERS = 2.0, 0.01, 0.04, 200
+TSDF_ATOL, TSDF_OUTSIDE = 1e-5, 1e-3  # voxels where a round of u or v flips
+REPO = Path(__file__).resolve().parent
 
 
 def phase(name):
@@ -639,6 +691,7 @@ def run(ckpt_dir: str) -> int:
     probe_kernels, probe_numbers = probes_phase(
         (k1_rec, isect.gaussian_ids, isect.tile_bins, tiles[0]), k1["ms"],
         k1_bytes, k1_ops)
+    backend_numbers = backend_phase(Path(ckpt_dir), trainer_numbers)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -688,6 +741,7 @@ def run(ckpt_dir: str) -> int:
                       "train_step_ms_median": statistics.median(ms_steps),
                       "train_step_ms_min": min(ms_steps),
                       "trainer": trainer_numbers, "probes": probe_numbers,
+                      "backend": backend_numbers,
                       "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -813,6 +867,7 @@ def trainer_phase(work_dir: Path, counters) -> dict:
             "eval_all_ms_per_view": statistics.median(eval_ms),
             "num_alive": [alive[0][1], alive[-1][1]],
             "eval_image_psnr": images, "final_eval_psnr": final_eval[1],
+            "final_eval_ssim": col("eval_ssim")[-1][1],
             **cache_numbers, **png_numbers, **refine_numbers, **grow_numbers}
 
 
@@ -1178,6 +1233,395 @@ def probes_phase(k1_render, k1_ms, k1_bytes, k1_ops):
     return entries, numbers
 
 
+def backend_phase(work_dir: Path, trained: dict) -> dict:
+    """Phase 13: gs-eval, gs-render and gs-export on phase 11's run
+    directory (its step-400 checkpoint), through the CLIs' ``main``."""
+    phase("13 back end: gs-eval, gs-render and gs-export on phase 11's run")
+    run_dir = work_dir / "runs" / "synthetic" / "gaussian-splatting"
+    out = work_dir / "backend"
+    out.mkdir()
+    counters = (composite_tiles_fwd, segment_broadcast)
+    numbers = {**eval_check(run_dir, out, trained, counters),
+               **render_check(run_dir, out, counters),
+               **export_check(run_dir, out)}
+    loaded = [m for m in ("PIL", "cv2", "yaml", "torchvision", "transformers")
+              if m in sys.modules]
+    assert not loaded, f"the back end imported {loaded}"
+    return numbers
+
+
+def launches_of(counters) -> dict:
+    return {f.__name__: f.launches for f in counters}
+
+
+def check_eval(name, got, want) -> None:
+    """gs-eval's mean PSNR within rtol EVAL_RTOL and SSIM within atol
+    EVAL_ATOL of ``want``'s (``{"psnr", "ssim"}``, or another gs-eval JSON,
+    whose per-view lists are then held alike)."""
+    mean = lambda r: r["results"] if "results" in r else r
+    pairs = [(mean(got)["psnr"], mean(want)["psnr"], EVAL_RTOL, 0.0),
+             (mean(got)["ssim"], mean(want)["ssim"], 0.0, EVAL_ATOL)]
+    if "per_image" in want:
+        for k, rtol, atol in (("psnr", EVAL_RTOL, 0.0), ("ssim", 0.0, EVAL_ATOL)):
+            assert len(got["per_image"][k]) == len(want["per_image"][k])
+            pairs += [(a, b, rtol, atol) for a, b in
+                      zip(got["per_image"][k], want["per_image"][k])]
+    for a, b, rtol, atol in pairs:
+        assert math.isfinite(a) and abs(a - b) <= atol + rtol * abs(b), (
+            f"{name}: {a} against {b}")
+
+
+@contextlib.contextmanager
+def tf32_convolutions():
+    """cuDNN's default TF32 convolutions, with the package's f32 guard
+    bypassed: what SSIM computed before the guard."""
+    saved = torch.backends.cudnn.allow_tf32, losses.f32_convolutions
+    torch.backends.cudnn.allow_tf32 = True
+    losses.f32_convolutions = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, losses.f32_convolutions = saved
+
+
+def eval_check(run_dir: Path, out: Path, trained: dict, counters) -> dict:
+    """gs-eval in process (device loop and host loop), in a fresh
+    ``python -m`` process under PyTorch's default TF32 flags, and with
+    LPIPS weights; the device loop timed and one view traced."""
+    cfg = str(run_dir / "config.yml")
+    argv = lambda name, *extra: ["--load-config", cfg, "--output-path",
+                                 str(out / name), *extra]
+    want = {"psnr": trained["final_eval_psnr"], "ssim": trained["final_eval_ssim"]}
+    for f in counters:
+        f.launches = 0
+    res = eval_cli.main(argv("eval.json", "--skip-lpips"))
+    torch.cuda.synchronize()
+    launches = launches_of(counters)
+    n = res["results"]["num_images"]
+    print(f"gs-eval: {n} views, PSNR {res['results']['psnr']:.6f} SSIM "
+          f"{res['results']['ssim']:.6f} (the trainer's final eval: PSNR "
+          f"{want['psnr']:.6f} SSIM {want['ssim']:.6f}); launches {launches}")
+    assert n == SYN_VIEWS // 8 and res["results"]["lpips"] is None
+    assert all(v == n for v in launches.values()), "K1 / K3 not once a view"
+    check_eval("gs-eval vs the trainer's eval", res, want)
+    host = eval_cli.main(argv("eval_host.json", "--skip-lpips", "--force-host-loop"))
+    check_eval("--force-host-loop", host, res)
+    proc = subprocess.run(
+        [sys.executable, "-m", "gstk_torch.scripts.eval",
+         *argv("eval_sub.json", "--skip-lpips")],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    sub = json.loads((out / "eval_sub.json").read_text())
+    check_eval("gs-eval in a fresh process", sub, res)
+    assert {k: v for k, v in sub.items() if k not in ("results", "per_image")} == {
+        k: v for k, v in res.items() if k not in ("results", "per_image")}
+    print(f"gs-eval --force-host-loop and in a fresh process (default TF32 "
+          f"flags): PSNR {host['results']['psnr']:.6f} / "
+          f"{sub['results']['psnr']:.6f}, SSIM {host['results']['ssim']:.6f} / "
+          f"{sub['results']['ssim']:.6f}")
+
+    config = load_config(run_dir / "config.yml")
+    renderer = Renderer(run_dir / "ckpts", model_config=config.model,
+                        background=EVAL_BACKGROUND, device=DEVICE)
+    frames = FullImageDatamanager(config.dataparser, seed=config.seed,
+                                  splits=("eval",)).eval_frames
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_cli.batched_eval(renderer, frames)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / len(frames))
+    print(f"gs-eval device loop: {[round(x, 3) for x in ms]} ms a view "
+          f"(synchronized, {len(frames)} views)")
+    traced = trace("gs-eval view", lambda: eval_cli.batched_eval(renderer, frames[:1]),
+                   top=10)
+
+    frame = frames[0]
+    h, w = frame.image.shape[:2]
+    with torch.no_grad():
+        pred = renderer.render(frame.c2w, frame.fx, frame.fy, frame.cx, frame.cy,
+                               h, w)["rgb"]
+    gt = torch.from_numpy(composite_gt_with_background(
+        frame.image, np.asarray(EVAL_BACKGROUND, np.float32))).to(DEVICE)
+    ssim_f32 = float(losses.ssim(gt, pred))
+    with tf32_convolutions():
+        ssim_tf32 = float(losses.ssim(gt, pred))
+    print(f"SSIM of eval view 0: {ssim_f32:.8f} in f32, {ssim_tf32:.8f} with "
+          f"cuDNN's TF32 (the package's guard bypassed), diff "
+          f"{ssim_tf32 - ssim_f32:.3g}")
+
+    params = random_lpips_params(SEED, device="cpu")
+    weights = out / "lpips.npz"
+    np.savez(weights, **{k: v.numpy() for k, v in params.items()})
+    lp = eval_cli.main(argv("eval_lpips.json", "--lpips-weights", str(weights)))
+    value = lp["results"]["lpips"]
+    assert value is not None and math.isfinite(value) and value > 0, value
+    check_eval("gs-eval with LPIPS", lp, res)
+    card_params = {k: v.to(DEVICE) for k, v in params.items()}
+    ms_lpips = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_cli.batched_eval(renderer, frames, card_params)
+        torch.cuda.synchronize()
+        ms_lpips.append((time.perf_counter() - t0) * 1e3 / len(frames))
+    y0, x0 = (h - LPIPS_CROP) // 2, (w - LPIPS_CROP) // 2
+    crop = lambda x: x[y0:y0 + LPIPS_CROP, x0:x0 + LPIPS_CROP].contiguous()
+    lp_card = float(lpips(card_params, crop(gt), crop(pred)))
+    lp_cpu = float(lpips(params, crop(gt).cpu(), crop(pred).cpu()))
+    err = abs(lp_card - lp_cpu) / abs(lp_cpu)
+    print(f"LPIPS (random weights, npz): gs-eval {value:.6g} over {n} views, "
+          f"{[round(x, 3) for x in ms_lpips]} ms a view with LPIPS; on a "
+          f"{LPIPS_CROP}^2 crop of view 0 card {lp_card:.8g}, CPU {lp_cpu:.8g}, "
+          f"rel err {err:.3g}")
+    assert err <= 1e-4, "LPIPS on the card differs from the CPU"
+    return {"eval": {"views": n, "launches": launches,
+                     "launches_per_view": {k: v / n for k, v in launches.items()},
+                     "psnr": res["results"]["psnr"], "ssim": res["results"]["ssim"],
+                     "trainer_psnr": want["psnr"], "trainer_ssim": want["ssim"],
+                     "subprocess_psnr": sub["results"]["psnr"],
+                     "subprocess_ssim": sub["results"]["ssim"],
+                     "ms_per_view": statistics.median(ms), "traced_view": traced,
+                     "ssim_f32": ssim_f32, "ssim_tf32": ssim_tf32,
+                     "lpips": value, "lpips_ms_per_view": min(ms_lpips),
+                     "lpips_crop_rel_err": err}}
+
+
+def record_bands(fn) -> list:
+    """Run ``fn`` with ``bin_gaussians`` recorded: per band, its tile count,
+    true intersection count and the last tile range's end."""
+    rasterize_mod = importlib.import_module("gstk_torch.ops.rasterize")
+    inner, seen = rasterize_mod.bin_gaussians, []
+
+    def recorded(*args, **kw):
+        isect = inner(*args, **kw)
+        bins = isect.tile_bins
+        seen.append({"tiles": int(bins.shape[0]),
+                     "num_intersects": int(isect.num_intersects),
+                     "capacity": int(isect.gaussian_ids.shape[0]),
+                     "last_end": int(bins[:, 1].max()),
+                     "ordered": bool((bins[:, 0] <= bins[:, 1]).all()
+                                     and (bins[1:, 0] >= bins[:-1, 1]).all())})
+        return isect
+
+    rasterize_mod.bin_gaussians = recorded
+    try:
+        fn()
+    finally:
+        rasterize_mod.bin_gaussians = inner
+    return seen
+
+
+def render_check(run_dir: Path, out: Path, counters) -> dict:
+    """gs-render pose (every file read back against the Renderer's output,
+    quantized alike) and trajectory (8 poses at 1920x1080, four bands: K1
+    and K3 four times a frame, one frame against the plain twins)."""
+    cfg = str(run_dir / "config.yml")
+    config = load_config(run_dir / "config.yml")
+    dm = FullImageDatamanager(config.dataparser, seed=config.seed)
+    train = dm.train_frames
+    pose_dir = out / "pose"
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    render_cli.main(["pose", "--load-config", cfg, "--output-dir", str(pose_dir)])
+    torch.cuda.synchronize()
+    pose_s = time.perf_counter() - t0
+    launches = launches_of(counters)
+    assert all(v == len(train) for v in launches.values()), launches
+    for sub in ("rgb", "depth", "gt/rgb", "gt/depth"):
+        assert len(list((pose_dir / sub).glob("*.png"))) == len(train), sub
+    poses = json.loads((pose_dir / "poses.json").read_text())
+    assert len(poses) == len(train)
+    renderer = Renderer(run_dir / "ckpts", model_config=config.model, device=DEVICE)
+    for i, frame in enumerate(train):
+        o = renderer.get_output_from_pose(frame.c2w, frame.fx, frame.fy, frame.cx,
+                                          frame.cy, H, W)
+        rgb = (np.clip(o["rgb"], 0, 1) * 255).astype(np.uint8)
+        mm = np.minimum((1000.0 * o["depth"]).astype(np.uint32), 65535)
+        assert np.array_equal(read_png(pose_dir / "rgb" / f"frame_{i:05d}.png"), rgb), i
+        got = read_png(pose_dir / "depth" / f"depth_{i:05d}.png")
+        assert got.dtype == np.uint16 and np.array_equal(got, mm), i
+    write_ms = {}
+    for name, fn, arr in (("rgb", render_cli._save_rgb, o["rgb"]),
+                          ("depth", render_cli._save_depth_mm, o["depth"])):
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(out / f"w_{name}.png", arr)
+            t.append((time.perf_counter() - t0) * 1e3)
+        write_ms[name] = statistics.median(t)
+    print(f"gs-render pose: {len(train)} views in {pose_s:.2f} s, launches "
+          f"{launches}; every rgb and depth PNG equals the Renderer's output "
+          f"quantized alike; PNG write {W}x{H} (host): {write_ms} ms")
+
+    fov = math.degrees(2.0 * math.atan(0.5 * H / train[0].fy))
+    path = {"camera_path": [
+        {"camera_to_world": np.vstack([f.c2w, [0, 0, 0, 1]]).ravel().tolist(),
+         "fov": fov} for f in train[:TRAJ_POSES]]}
+    (out / "path.json").write_text(json.dumps(path))
+    bands = renderer._raster_for(TRAJ_H, TRAJ_W).bands
+    assert bands == TRAJ_BANDS, f"{bands} bands at {TRAJ_W}x{TRAJ_H}"
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    render_cli.main(["trajectory", "--trajectory-path", str(out / "path.json"),
+                     "--load-config", cfg, "--num-frames-target", str(TRAJ_POSES)])
+    torch.cuda.synchronize()
+    traj_s = time.perf_counter() - t0
+    traj_launches = launches_of(counters)
+    assert all(v == TRAJ_BANDS * TRAJ_POSES for v in traj_launches.values()), (
+        traj_launches)
+    assert len(list((run_dir / "render" / "rgb").glob("*.png"))) == TRAJ_POSES
+
+    fy = 0.5 * TRAJ_H / math.tan(math.radians(fov) / 2)
+    args = lambda f: (np.vstack([f.c2w, [0, 0, 0, 1]]), fy, fy, TRAJ_W / 2,
+                      TRAJ_H / 2, TRAJ_H, TRAJ_W)
+    renderer.get_output_from_pose(*args(train[0]))  # warm-up
+    frame_ms = []
+    for f in train[:TRAJ_POSES]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.get_output_from_pose(*args(f))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    per_band = record_bands(lambda: renderer.get_output_from_pose(*args(train[0])))
+    rows = -(-((TRAJ_H + 15) // 16) // TRAJ_BANDS)
+    tiles_x = (TRAJ_W + 15) // 16
+    assert [b["tiles"] for b in per_band] == [
+        tiles_x * min(rows, (TRAJ_H + 15) // 16 - b * rows) for b in range(TRAJ_BANDS)]
+    for b in per_band:
+        assert b["ordered"] and 0 < b["num_intersects"] <= b["capacity"], b
+        assert b["last_end"] == b["num_intersects"], b
+    got = renderer.get_output_from_pose(*args(train[0]))
+    plain = Renderer(run_dir / "ckpts", model_config=config.model, device=DEVICE,
+                     raster_config=RasterizeConfig(
+                         isect_capacity=renderer.raster_config.isect_capacity,
+                         bands=0, backend="plain", forward_only=True))
+    want = plain.get_output_from_pose(*args(train[0]))
+    errs = {}
+    for k in ("rgb", "depth", "accumulation"):
+        assert_close(f"trajectory frame {k}", torch.from_numpy(got[k]),
+                     torch.from_numpy(want[k]), **PARITY, max_outside=1e-3)
+        errs[k] = float(np.abs(got[k] - want[k]).max())
+    traced = trace("trajectory frame (1920x1080, 4 bands)",
+                   lambda: renderer.get_output_from_pose(*args(train[0])), top=8)
+    print(f"gs-render trajectory: {TRAJ_POSES} frames at {TRAJ_W}x{TRAJ_H} in "
+          f"{traj_s:.2f} s, launches {traj_launches} ({TRAJ_BANDS} bands); "
+          f"{[round(x, 3) for x in frame_ms]} ms a frame (Renderer, "
+          f"synchronized); intersections per band of frame 0 "
+          f"{[b['num_intersects'] for b in per_band]} of capacity "
+          f"{per_band[0]['capacity']}; frame 0 vs plain twins max abs err {errs}")
+    return {"render": {
+        "pose_views": len(train), "pose_launches": launches, "pose_s": pose_s,
+        "png_write_ms": write_ms, "trajectory_frames": TRAJ_POSES,
+        "trajectory_launches": traj_launches,
+        "trajectory_launches_per_frame": {k: v / TRAJ_POSES
+                                          for k, v in traj_launches.items()},
+        "bands": TRAJ_BANDS, "frame_ms_median": statistics.median(frame_ms),
+        "frame_ms_min": min(frame_ms), "band_intersects": per_band,
+        "frame_vs_plain_max_err": errs, "traced_frame": traced}}
+
+
+def export_check(run_dir: Path, out: Path) -> dict:
+    """gs-export's four commands; the splat PLY byte for byte the CPU's,
+    offline-tsdf at its defaults with both meshers, masking and cleanup;
+    then the fused volume on the card against the CPU on the same frames,
+    and the integration, Poisson and marching-tetrahedra times."""
+    cfg = str(run_dir / "config.yml")
+    exp = out / "export"
+    seconds = {}
+
+    def run(name, *argv):
+        t0 = time.perf_counter()
+        export_cli.main([*argv, "--load-config", cfg, "--output-dir", str(exp / name)])
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+
+    run("card", "gaussian-splat")
+    run("cpu", "gaussian-splat", "--device", "cpu")
+    ply = (exp / "card" / "gaussians.ply").read_bytes()
+    assert ply == (exp / "cpu" / "gaussians.ply").read_bytes(), "splat PLYs differ"
+    run("poses", "camera-poses")
+    n_poses = [len(json.loads((exp / "poses" / f"{s}_poses.json").read_text()))
+               for s in ("train", "eval")]
+    assert n_poses == [SYN_VIEWS - SYN_VIEWS // 8, SYN_VIEWS // 8], n_poses
+    run("cloud", "point-cloud")
+    n_points = len(read_ply(exp / "cloud" / "point_cloud.ply")["vertex"])
+    assert n_points > 0
+    run("tetra", "offline-tsdf")
+    run("poisson", "offline-tsdf", "--meshing", "poisson", "--clean",
+        "--mask-method", "threshold")
+    meshes = {}
+    for name in ("tetra", "poisson"):
+        mesh = read_ply(exp / name / "tsdf_mesh.ply")
+        meshes[name] = [len(mesh["vertex"]), len(mesh["face"])]
+        assert min(meshes[name]) > 0, f"empty {name} mesh"
+    print(f"gs-export: splat PLY {len(ply)} B, equal to --device cpu's; poses "
+          f"{n_poses}; {n_points} cloud points; meshes (vertices, faces) "
+          f"{meshes}; seconds {{{', '.join(f'{k}: {v:.2f}' for k, v in seconds.items())}}}")
+
+    config = load_config(run_dir / "config.yml")
+    frames = FullImageDatamanager(config.dataparser, seed=config.seed).train_frames
+    renderer = Renderer(run_dir / "ckpts", model_config=config.model, device=DEVICE)
+    depths, colors, intr, w2cs = export_cli.fusion_inputs(renderer, frames)
+    inputs = (np.stack(depths), np.stack(colors), np.asarray(intr, np.float32),
+              np.stack(w2cs))
+    box = ((-TSDF_SIZE / 2,) * 3, (TSDF_SIZE,) * 3, TSDF_VOXEL)
+    integrate_frames(make_volume(*box, device=DEVICE),
+                     *(x[:1] for x in inputs), TSDF_TRUNC)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = integrate_frames(make_volume(*box, device=DEVICE), *inputs, TSDF_TRUNC)
+    torch.cuda.synchronize()
+    integrate_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    ref = integrate_frames(make_volume(*box, device="cpu"), *inputs, TSDF_TRUNC)
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    outside = torch.zeros(ref.tsdf.shape, dtype=torch.bool)
+    err = {}
+    for k in ("tsdf", "colors"):
+        diff = (getattr(vol, k).cpu() - getattr(ref, k)).abs()
+        bad = diff > TSDF_ATOL
+        outside |= bad if bad.ndim == 3 else bad.any(-1)
+        err[k] = float(diff.max())
+    share = float(outside.float().mean())
+    observed = int((ref.weights > 0).sum())
+    print(f"TSDF {tuple(ref.tsdf.shape)} from {len(frames)} frames: integrate "
+          f"{integrate_ms:.3f} ms a frame on the card (synchronized), "
+          f"{cpu_ms:.1f} on the CPU; {observed} voxels observed; card vs CPU: "
+          f"{int(outside.sum())} voxels ({share:.2e}) outside atol {TSDF_ATOL}, "
+          f"max abs err {err}")
+    assert share <= TSDF_OUTSIDE, "the card's TSDF volume differs from the CPU's"
+    assert torch.equal(vol.weights.cpu()[~outside], ref.weights[~outside]), (
+        "weights differ outside the flipped voxels")
+    assert observed > 0 and float(ref.weights.max()) > 1
+    tsdf, weights = vol.tsdf.cpu().numpy(), vol.weights.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poisson_indicator(tsdf, np.minimum(weights, 1.0), iters=POISSON_ITERS,
+                      device=DEVICE)
+    poisson_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    verts, faces, _ = marching_tetrahedra(tsdf, weights, vol.colors.cpu().numpy(),
+                                          origin=vol.origin.cpu().numpy(),
+                                          voxel_size=TSDF_VOXEL)
+    mt_s = time.perf_counter() - t0
+    print(f"poisson_indicator {POISSON_ITERS} iterations {poisson_ms:.1f} ms "
+          f"(card, with the host copies); marching_tetrahedra {mt_s:.2f} s "
+          f"(host), {len(verts)} vertices, {len(faces)} faces")
+    return {"export": {"seconds": seconds, "splat_ply_bytes": len(ply),
+                       "cloud_points": n_points, "meshes": meshes,
+                       "tsdf_dims": list(ref.tsdf.shape), "frames": len(frames),
+                       "integrate_ms_per_frame": integrate_ms,
+                       "integrate_cpu_ms_per_frame": cpu_ms,
+                       "voxels_observed": observed,
+                       "voxels_outside": int(outside.sum()),
+                       "card_vs_cpu_max_err": err, "poisson_ms": poisson_ms,
+                       "marching_tetrahedra_s": mt_s}}
+
+
 def kept_warp_entries(fwd_args) -> dict:
     """By warp size (32 and 64 consecutive pixels of a tile, 2 and 4 rows):
     the (tile, warp, entry) triples in which at least one of the warp's
@@ -1251,12 +1695,12 @@ def compare_steps(metrics, metrics_p, before, got, want, optim_cfg, step=0):
           f"{float(metrics_p['loss']):.6f}; entries outside tolerance {worst}")
 
 
-def trace(label, fn, top: int = 8, show: tuple = ()) -> None:
+def trace(label, fn, top: int = 8, show: tuple = ()) -> dict:
     """One call of ``fn`` under torch.profiler (a separate, traced run): wall
     time, device busy time (the sum over device-side events, kernels and
     copies; one stream, so they do not overlap), the device's idle share,
     the device events that take most time and those whose name holds one
-    of ``show``."""
+    of ``show``; printed, and returned with the ``top`` events."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1269,13 +1713,18 @@ def trace(label, fn, top: int = 8, show: tuple = ()) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_events = sum(e.count for e in events)
     print(f"traced {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"device idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{sum(e.count for e in events)} device events")
+          f"{n_events} device events")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
         if i < top or any(s in e.key for s in show):
             print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x  {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "device_events": n_events,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                    for e in ranked[:top]]}
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ reads. :func:`rgb_loss` is (1 - lambda) L1 + lambda (1 - SSIM) with an
 optional mask and scale regularizer. Wherever gstk_tpu clips a
 differentiated value with ``jnp.minimum``/``jnp.maximum``, the port uses
 ``torch.minimum``/``torch.maximum``, whose gradient splits at a tie as
-JAX's does (``torch.clamp`` would pass all of it). The crop box is not
-ported yet.
+JAX's does (``torch.clamp`` would pass all of it). An optional crop box
+(:mod:`gstk_torch.core.scene_box`) drops the Gaussians outside it the way
+dead lanes are dropped.
 """
 
 from __future__ import annotations
@@ -82,11 +83,12 @@ def splat_inputs(
     sh_degree: int,
     config: VanillaConfig = VanillaConfig(),
     block_width: int = 16,
+    crop_box=None,
 ) -> Dict[str, torch.Tensor]:
     """Projection, SH colors and opacities of one view: the arguments of
     :func:`gstk_torch.ops.rasterize.rasterize` (``colors`` holds RGB plus
-    depth as a 4th channel; dead lanes have radius, tile count and opacity
-    0)."""
+    depth as a 4th channel; dead lanes, and lanes outside ``crop_box`` when
+    one is given, have radius, tile count and opacity 0)."""
     means = scene.means
     quats = normalize(scene.quats)
     scales = torch.exp(scene.scales)
@@ -97,8 +99,11 @@ def splat_inputs(
         camera.fx, camera.fy, camera.cx, camera.cy,
         img_height, img_width, block_width,
     )
-    # dead lanes never enter binning or compositing
+    # dead lanes never enter binning or compositing; a crop box filters
+    # renders the same way
     alive = scene.alive
+    if crop_box is not None:
+        alive = alive & crop_box.within(means.detach())
 
     if sh_degree > 0 or config.sh_degree > 0:
         coeffs = torch.cat(
@@ -139,16 +144,20 @@ def render_scene(
     config: VanillaConfig = VanillaConfig(),
     raster_config: RasterizeConfig = RasterizeConfig(),
     xys_offset: Optional[torch.Tensor] = None,
+    crop_box=None,
 ) -> Dict[str, torch.Tensor]:
     """Render one camera view: rgb (H,W,3), depth (H,W), alpha (H,W),
     background, radii, visible, num_intersects.
 
     ``sh_degree`` is the active degree. ``xys_offset`` is an optional (C, 2)
     zero tensor added to the projected centers; its gradient is the
-    screen-space positional gradient that densification reads."""
+    screen-space positional gradient that densification reads.
+    ``crop_box`` is an optional ``SceneBox`` / ``OrientedBox``: only the
+    Gaussians whose means lie within it are rendered."""
     inputs = splat_inputs(
         scene, camera, img_height, img_width, sh_degree=sh_degree,
         config=config, block_width=raster_config.block_width,
+        crop_box=crop_box,
     )
     if xys_offset is not None:
         inputs["xys"] = inputs["xys"] + xys_offset
@@ -178,8 +187,9 @@ def render_scene(
     }
 
 
-def composite_gt_with_background(image: torch.Tensor, background: torch.Tensor):
-    """RGBA ground truth over the train background."""
+def composite_gt_with_background(image, background):
+    """RGBA ground truth over a background (tensors, or numpy arrays on the
+    host); RGB passes through."""
     if image.shape[-1] == 4:
         a = image[..., 3:4]
         return a * image[..., :3] + (1.0 - a) * background

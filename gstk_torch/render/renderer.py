@@ -83,23 +83,34 @@ class Renderer:
             rc = dataclasses.replace(rc, bands=bands)
         return rc
 
-    def get_output_from_pose(
+    def render(
         self, c2w: np.ndarray, fx: float, fy: float, cx: float, cy: float,
-        height: int, width: int,
-    ) -> Dict[str, np.ndarray]:
-        """Render one pose ((3,4) or (4,4) OpenGL c2w). Returns numpy rgb
-        (H,W,3), depth (H,W), accumulation (H,W), and the true intersection
-        count ``num_intersects`` (above the capacity means truncation)."""
+        height: int, width: int, crop_box=None,
+    ) -> Dict[str, torch.Tensor]:
+        """Render one pose ((3,4) or (4,4) OpenGL c2w) and keep the result
+        on the device: :func:`render_scene`'s outputs."""
         camera = Camera.create(
             fx, fy, cx, cy, np.asarray(c2w, np.float32), device=self.device
         )
         with torch.no_grad():
-            out = render_scene(
+            return render_scene(
                 self.scene, camera, height, width,
                 sh_degree=self.sh_degree, background=self.background,
                 config=self.model_config,
                 raster_config=self._raster_for(height, width),
+                crop_box=crop_box,
             )
+
+    def get_output_from_pose(
+        self, c2w: np.ndarray, fx: float, fy: float, cx: float, cy: float,
+        height: int, width: int, crop_box=None,
+    ) -> Dict[str, np.ndarray]:
+        """Render one pose ((3,4) or (4,4) OpenGL c2w). Returns numpy rgb
+        (H,W,3), depth (H,W), accumulation (H,W), and the true intersection
+        count ``num_intersects`` (above the capacity means truncation).
+        ``crop_box`` is an optional ``SceneBox`` / ``OrientedBox`` filtering
+        the Gaussians."""
+        out = self.render(c2w, fx, fy, cx, cy, height, width, crop_box)
         return {
             "rgb": out["rgb"].cpu().numpy(),
             "depth": out["depth"].cpu().numpy(),

@@ -32,6 +32,7 @@ from gstk_torch.models.vanilla import (
 from gstk_torch.ops.rasterize import RasterizeConfig
 from gstk_torch.train.optim import AdamState, OptimizerConfig, adam_step, init_adam
 from gstk_torch.train.strategy import RefineState, init_refine_state
+from gstk_torch.utils.losses import f32_convolutions
 
 
 @dataclasses.dataclass
@@ -136,9 +137,10 @@ def make_train_step(
         ld = rgb_loss(out["rgb"], gt, scene, model_cfg, mask, apply_scale_reg)
         loss = sum(ld.values())
         params = scene.params()
-        grads = torch.autograd.grad(
-            loss, [*params.values(), xys_offset], allow_unused=True
-        )
+        with f32_convolutions():  # SSIM's convolution backward, in f32 too
+            grads = torch.autograd.grad(
+                loss, [*params.values(), xys_offset], allow_unused=True
+            )
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip([*params.values(), xys_offset], grads)]
         mse = torch.mean((out["rgb"].detach() - gt[..., :3]) ** 2)

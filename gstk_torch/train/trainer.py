@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +40,12 @@ from gstk_torch.core.cameras import Camera
 from gstk_torch.core.gaussians import grow_scene, init_scene
 from gstk_torch.data.datamanager import CachedFrame, FullImageDatamanager
 from gstk_torch.data.dataparser import DataparserConfig
-from gstk_torch.models.vanilla import VanillaConfig, downscale_factor, render_scene
+from gstk_torch.models.vanilla import (
+    VanillaConfig,
+    composite_gt_with_background,
+    downscale_factor,
+    render_scene,
+)
 from gstk_torch.ops.rasterize import RasterizeConfig
 from gstk_torch.train import checkpoint as ckpt
 from gstk_torch.train.optim import AdamState, OptimizerConfig
@@ -53,6 +58,7 @@ from gstk_torch.train.step import (
 from gstk_torch.train.strategy import RefineState, refine
 from gstk_torch.utils import losses as loss_utils
 from gstk_torch.utils.colors import EVAL_BACKGROUND
+from gstk_torch.utils.lpips import lpips
 from gstk_torch.utils.profiler import PROFILER, timer
 from gstk_torch.utils.writer import (
     EventName,
@@ -65,11 +71,9 @@ _EVAL_BACKGROUND = np.array(EVAL_BACKGROUND, np.float32)
 
 
 def _eval_gt(image: np.ndarray) -> np.ndarray:
-    """An eval frame's GT: RGBA composited over the eval background."""
-    if image.shape[-1] == 4:
-        a = image[..., 3:4]
-        return a * image[..., :3] + (1.0 - a) * _EVAL_BACKGROUND
-    return image
+    """An eval frame's GT on the host: RGBA composited over the eval
+    background (the side-by-side eval image)."""
+    return composite_gt_with_background(image, _EVAL_BACKGROUND)
 
 
 @dataclasses.dataclass
@@ -164,6 +168,36 @@ def _dequantize_image(img: torch.Tensor) -> torch.Tensor:
         return img.to(torch.float32).div_(
             torch.full((), 255.0, dtype=torch.float32, device=img.device))
     return img
+
+
+def score_views(render: Callable[[CachedFrame], torch.Tensor], frames,
+                background: torch.Tensor, lpips_params=None,
+                return_preds: bool = False):
+    """PSNR, SSIM and, with ``lpips_params``, LPIPS of each frame's render
+    against its ground truth, computed on ``background``'s device, view by
+    view: ``render(frame)`` gives the (H, W, 3) prediction there; each GT is
+    uploaded as uint8 when that is lossless and RGBA is composited over
+    ``background``. The stacked scalars are fetched once at the end and,
+    with ``return_preds``, the (n, H, W, 3) predictions in one more
+    transfer (equal shapes only). Returns numpy ``(psnrs, ssims, lpips or
+    None, preds or None)``. The trainer's evals and gs-eval both score
+    through this function."""
+    device = background.device
+    psnrs, ssims, lps, preds = [], [], [], []
+    for frame in frames:
+        pred = render(frame)
+        gt = composite_gt_with_background(
+            _dequantize_image(_quantize_cache_images(frame.image, device)),
+            background)
+        mse = torch.mean((pred - gt) ** 2)
+        psnrs.append(-10.0 * torch.log10(torch.clamp(mse, min=1e-10)))
+        ssims.append(loss_utils.ssim(gt, pred))
+        if lpips_params is not None:
+            lps.append(lpips(lpips_params, gt, pred))
+        if return_preds:
+            preds.append(pred)
+    host = lambda xs: torch.stack(xs).cpu().numpy() if xs else None
+    return host(psnrs), host(ssims), host(lps), host(preds)
 
 
 def _area_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -656,16 +690,9 @@ class Trainer:
         return results
 
     def _score_views(self, frames) -> Tuple[np.ndarray, np.ndarray]:
-        """PSNR and SSIM of each view, rendered and scored on the device
-        (each view's GT uploaded as it comes); the stacked scalars are
-        fetched once at the end."""
+        """PSNR and SSIM of each view (:func:`score_views`)."""
         setting = self._eval_setting()
-        psnrs, ssims = [], []
-        for frame in frames:
-            pred = self._render_eval(frame, setting)["rgb"]
-            gt = torch.from_numpy(_eval_gt(frame.image)).to(self.device)
-            mse = torch.mean((pred - gt) ** 2)
-            psnrs.append(-10.0 * torch.log10(torch.clamp(mse, min=1e-10)))
-            ssims.append(loss_utils.ssim(gt, pred))
-        return (torch.stack(psnrs).cpu().numpy(),
-                torch.stack(ssims).cpu().numpy())
+        psnrs, ssims, _, _ = score_views(
+            lambda frame: self._render_eval(frame, setting)["rgb"], frames,
+            setting[1])
+        return psnrs, ssims

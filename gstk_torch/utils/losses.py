@@ -9,9 +9,15 @@ statistics (x, y, x², y², xy), so the five filters are one pass. gstk_tpu's
 matmul / taps toggle (``GSTK_SSIM_FILTER``) chooses between two TPU
 lowerings of the same filter and is not ported. The depth-loss zoo comes
 with the depth method.
+
+The convolutions run in f32 whatever the global flags say
+(:func:`f32_convolutions`): cuDNN's default ``allow_tf32=True`` would round
+their inputs to TF32 on the card, where gstk_tpu computes them in f32.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -23,6 +29,18 @@ def l1(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     gradient is +1, as ``jnp.abs``'s (``torch.abs`` gives 0 there)."""
     d = pred - gt
     return torch.where(d >= 0, d, -d).mean()
+
+
+@contextlib.contextmanager
+def f32_convolutions():
+    """cuDNN convolutions in f32 (no TF32) inside the block; the global
+    flag is restored on exit."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -38,8 +56,9 @@ def _filter2d_separable(img: torch.Tensor, win: np.ndarray) -> torch.Tensor:
     size = win.shape[0]
     w = torch.as_tensor(win, dtype=img.dtype, device=img.device)
     x = img.permute(2, 0, 1)[None]  # (1, C, H, W)
-    x = F.conv2d(x, w.view(1, 1, 1, size).repeat(c, 1, 1, 1), groups=c)
-    x = F.conv2d(x, w.view(1, 1, size, 1).repeat(c, 1, 1, 1), groups=c)
+    with f32_convolutions():
+        x = F.conv2d(x, w.view(1, 1, 1, size).repeat(c, 1, 1, 1), groups=c)
+        x = F.conv2d(x, w.view(1, 1, size, 1).repeat(c, 1, 1, 1), groups=c)
     return x[0].permute(1, 2, 0)
 
 

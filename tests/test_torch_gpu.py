@@ -23,6 +23,14 @@ against the CPU from the same state and split noise: equal alive masks
 and ``info``, parameters within rtol 1e-6 (the means within 1e-6 of the
 largest ``|mean|``: a split child's mean sums its parent's and an offset
 whose ``exp`` and matrix product round differently on the two devices).
+
+The back end on the card: a crop-box render and a four-band 1920x1080
+render (four K1 and four K3 launches) against the same renders through the
+plain twins (image tolerances, 0.1% of pixels allowed outside for the 1/255
+cutoff); the crop mask, LPIPS (rtol 1e-4) and TSDF integration (atol 1e-5
+on all but 0.1% of voxels, weights equal outside them) against the CPU;
+SSIM and LPIPS unchanged with cuDNN's TF32 switched on globally; and a
+depth PNG of a far scene clamped at 65535 mm.
 """
 
 import numpy as np
@@ -532,3 +540,140 @@ def test_train_cache_build_on_the_card(cuda, tmp_path):
         assert torch.equal(imgs[i], gt)
     stack = torch.from_numpy(np.stack([f.image for f in frames])).to(cuda)
     assert torch.equal(imgs, trainer_mod.area_downscale(stack, 4))
+
+
+# -- the back end (gs-eval, gs-render, gs-export) ----------------------------
+
+def _render_pair(scene, camera, h, w, **kw):
+    """One render through the kernels and the same through the plain
+    twins, both on the scene's device; the kernels' launch counts."""
+    from gstk_torch.models.vanilla import render_scene
+    from gstk_torch.ops.rasterize import RasterizeConfig
+
+    before = (composite_tiles_fwd.launches, segment_broadcast.launches)
+    outs = []
+    for backend in ("auto", "plain"):
+        cfg = RasterizeConfig(isect_capacity=1 << 18, bands=0, backend=backend,
+                              forward_only=True)
+        with torch.no_grad():
+            outs.append(render_scene(scene, camera, h, w, sh_degree=1,
+                                     background=torch.zeros(3, device=camera.c2w.device),
+                                     raster_config=cfg, **kw))
+        if backend == "auto":
+            launches = (composite_tiles_fwd.launches - before[0],
+                        segment_broadcast.launches - before[1])
+    for k in ("rgb", "depth", "alpha"):
+        got, want = outs[0][k], outs[1][k]
+        ok = (got - want).abs() <= PARITY["atol"] + PARITY["rtol"] * want.abs()
+        assert float((~ok).float().mean()) <= 1e-3, (k, int((~ok).sum()))
+    return outs[0], launches
+
+
+def test_crop_box_render_on_the_card(cuda):
+    from gstk_torch.core.scene_box import OrientedBox
+
+    arrays = _scene(np.random.default_rng(1))
+    scene = scene_from_numpy(arrays, cuda)
+    box = OrientedBox.from_params([0.2, 0.1, 0.5], [0.0, 0.0, -5.0],
+                                  [3.0, 2.0, 4.0], device=cuda)
+    inside = box.within(scene.means)
+    cpu_box = OrientedBox.from_params([0.2, 0.1, 0.5], [0.0, 0.0, -5.0],
+                                      [3.0, 2.0, 4.0], device="cpu")
+    assert torch.equal(inside.cpu(), cpu_box.within(torch.from_numpy(arrays["means"])))
+    assert 0 < int(inside.sum()) < len(inside)
+    h, w = 240, 320
+    camera = Camera.create(300.0, 300.0, w / 2, h / 2, np.eye(4)[:3], device=cuda)
+    full, _ = _render_pair(scene, camera, h, w)
+    cropped, launches = _render_pair(scene, camera, h, w, crop_box=box)
+    assert launches == (1, 1)
+    assert 0 < float(cropped["alpha"].sum()) < float(full["alpha"].sum())
+
+
+def test_four_band_render_1080p(cuda):
+    """1920x1080 resolves to four bands (one per 640,000 pixels); each band
+    launches K1 and K3 once, and the image, seams between the bands
+    included, matches the plain twins."""
+    arrays = _scene(np.random.default_rng(2), n=6000)
+    scene = scene_from_numpy(arrays, cuda)
+    h, w = 1080, 1920
+    camera = Camera.create(1000.0, 1000.0, w / 2, h / 2, np.eye(4)[:3], device=cuda)
+    out, launches = _render_pair(scene, camera, h, w)
+    assert launches == (4, 4)
+    assert out["rgb"].shape == (h, w, 3)
+    # every band holds a part of the scene: rows 0-271, 272-543, 544-815, 816-1079
+    for y0, y1 in ((0, 272), (272, 544), (544, 816), (816, 1080)):
+        assert float(out["alpha"][y0:y1].mean()) > 0.05
+
+
+def test_lpips_on_the_card_matches_cpu_and_ignores_tf32(cuda):
+    from gstk_torch.utils.losses import ssim
+    from gstk_torch.utils.lpips import lpips, random_lpips_params
+
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 1, (128, 128, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    cpu = float(lpips(random_lpips_params(0, device="cpu"), torch.from_numpy(a),
+                      torch.from_numpy(b)))
+    params = random_lpips_params(0, device=cuda)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        results = {}
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            results[tf32] = (float(lpips(params, ta, tb)), float(ssim(ta, tb)))
+            assert torch.backends.cudnn.allow_tf32 == tf32  # restored
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    np.testing.assert_allclose(results[False][0], cpu, rtol=1e-4)
+    np.testing.assert_allclose(results[True], results[False], rtol=1e-6)
+    np.testing.assert_allclose(results[False][1], float(ssim(
+        torch.from_numpy(a), torch.from_numpy(b))), rtol=1e-5)
+
+
+def test_integrate_frames_on_the_card_matches_cpu(cuda):
+    from gstk_torch.exporter.tsdf import integrate_frames, make_volume
+
+    rng = np.random.default_rng(0)
+    n, h, w = 3, 96, 96
+    depths = (2.0 + 0.3 * rng.uniform(-1, 1, (n, h, w))).astype(np.float32)
+    depths[:, :10] = 0
+    colors = rng.uniform(0, 1, (n, h, w, 3)).astype(np.float32)
+    intr = np.tile(np.array([[80, 80, 48, 48]], np.float32), (n, 1))
+    w2cs = np.stack([np.eye(4, dtype=np.float32)] * n)
+    w2cs[1, :3, 3] = [0.1, 0.0, 0.0]
+    w2cs[2, :3, 3] = [0.0, 0.05, 0.1]
+    box = ((-1.5, -1.5, 0.5), (3, 3, 3), 0.025)
+    vols = [integrate_frames(make_volume(*box, device=d), depths, colors, intr,
+                             w2cs, 0.1) for d in (cuda, "cpu")]
+    got, want = vols
+    outside = torch.zeros(want.tsdf.shape, dtype=torch.bool)
+    for k in ("tsdf", "colors"):
+        a, b = getattr(got, k).cpu(), getattr(want, k)
+        bad = (a - b).abs() > 1e-5
+        outside |= bad if bad.ndim == 3 else bad.any(-1)
+    assert float(outside.float().mean()) <= 1e-3, int(outside.sum())
+    assert torch.equal(got.weights.cpu()[~outside], want.weights[~outside])
+    assert float(want.weights.max()) == 3
+
+
+def test_depth_png_clamped_on_a_far_render(cuda, tmp_path):
+    """A scene 60-90 m away rendered on the card: its depth PNG holds
+    min(mm, 65535), as Pillow writes gstk_tpu's uint32 array."""
+    from gstk_torch.scripts.render import _save_depth_mm
+    from gstk_torch.utils.io import read_png
+
+    arrays = _scene(np.random.default_rng(3), n=3000)
+    arrays["means"][:, :2] *= 15.0
+    arrays["means"][:, 2] = np.random.default_rng(4).uniform(-90, -60, 3000)
+    arrays["scales"][:] = -0.5
+    scene = scene_from_numpy(arrays, cuda)
+    h, w = 120, 160
+    camera = Camera.create(150.0, 150.0, w / 2, h / 2, np.eye(4)[:3], device=cuda)
+    out, _ = _render_pair(scene, camera, h, w)
+    depth = out["depth"].cpu().numpy()
+    _save_depth_mm(tmp_path / "d.png", depth)
+    got = read_png(tmp_path / "d.png")
+    mm = (1000.0 * depth).astype(np.uint32)
+    assert got.dtype == np.uint16 and (mm > 65535).mean() > 0.1
+    np.testing.assert_array_equal(got, np.minimum(mm, 65535))
