@@ -1,5 +1,5 @@
-"""Drive gstk_torch's render, train, eval and export paths on one CUDA card
-and check them.
+"""Drive gstk_torch's render, train, eval and export paths and its three
+methods on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -110,11 +110,32 @@ line:
      but 0.1% of voxels, weights equal outside them), integration, Poisson
      and marching tetrahedra timed; Pillow, OpenCV, PyYAML, torchvision and
      transformers stay unimported;
+  14. methods, on phase 11's dataset (800x800, 21 train views, the 100k
+     seed cloud in 2^19 lanes): (b) ``gstk_torch.scripts.train co-gs`` for
+     300 steps with sensor depth from step 0 and SO3xR3 camera optimisation
+     (``ITER_TRAIN_TIME``, final eval PSNR, the depth-L1 term at its first
+     and last log, the camera adjustments finite and moved); (a) from its
+     trained state (step 300: every gate open, scales anisotropic), one
+     co-gs step (sensor depth L1, the sparse term, the planar term on 32x32
+     patches, the camera group over the 21 views) through the kernels,
+     with the launch counters reset just before (K1-K4 once each), against
+     the same step with ``backend="plain"`` and a generator of the same
+     seed (phase 10's tolerances, the camera group's moments and update
+     too); K2's depth column is nonzero, the camera gradient finite and
+     nonzero, no moment non-finite; the step timed and traced beside the
+     vanilla method's step from the same state, and ``torch.linalg.eigh``
+     on (16, 3, 3) timed; (c) ``surface-gs`` for 300 steps through d = 4,
+     2, 1 (a bucket every 100 steps), refining from step 100: every alive
+     mean equals the seed cloud's bit for bit, no split or dup, the step
+     time of each bucket; (b) and (c) with the counters reset just before
+     each and K1-K4 launched; the phase's wall time;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
-bounds; P1-P3: launches in phase 12's run of the probes; phase 11's
-numbers under ``trainer``, phase 12's under ``probes``, phase 13's, K1 and
-K3 launches a view and a frame included, under ``backend``), the card's
-name and power limit, and the last line ``{"ok": true, "device": {...}}``.
+bounds, and phase 14's launches under ``launches_methods``; P1-P3:
+launches in phase 12's run of the probes; phase 11's numbers under
+``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
+view and a frame included, under ``backend``, phase 14's under
+``methods``), the card's name and power limit, and the last line ``{"ok":
+true, "device": {...}}``.
 Kernel times are torch.profiler's device time; a kernel it records no
 launch of after three sessions fails the run.
 """
@@ -165,7 +186,9 @@ from gstk_torch.ops.segment_kernel import (
     segment_sum_sorted,
     segment_sum_sorted_plain,
 )
+from gstk_torch.configs.methods import method_configs
 from gstk_torch.configs.serialize import load_config
+from gstk_torch.core.camera_opt import CameraOptConfig
 from gstk_torch.data.datamanager import FullImageDatamanager
 from gstk_torch.data.synthetic import ISECT_CAPACITY, generate_synthetic_dataset
 from gstk_torch.exporter.poisson import poisson_indicator
@@ -184,7 +207,8 @@ from gstk_torch.train.checkpoint import (
 from gstk_torch.train.optim import OptimizerConfig
 from gstk_torch.train.step import init_train_state, make_train_step
 from gstk_torch.train.strategy import refine
-from gstk_torch.train.trainer import area_downscale, train_cache_bytes
+from gstk_torch.train import trainer as trainer_mod
+from gstk_torch.train.trainer import Trainer, area_downscale, train_cache_bytes
 from gstk_torch.utils.colors import EVAL_BACKGROUND
 from gstk_torch.utils import losses
 from gstk_torch.utils.io import read_ply, read_png, read_ply_points, write_ply
@@ -232,6 +256,11 @@ TRAJ_POSES, TRAJ_W, TRAJ_H, TRAJ_BANDS = 8, 1920, 1080, 4
 # gs-export offline-tsdf's defaults: a 2 m cube of 1 cm voxels (200^3)
 TSDF_SIZE, TSDF_VOXEL, TSDF_TRUNC, POISSON_ITERS = 2.0, 0.01, 0.04, 200
 TSDF_ATOL, TSDF_OUTSIDE = 1e-5, 1e-3  # voxels where a round of u or v flips
+# phase 14: the runs take 300 steps (at the co-gs run's last, the sparse
+# gate, step % 100 == 0, and the depth and planar gates, step > 0, are all
+# open), surface-gs's buckets 100 each
+PLANAR_PATCH, METHOD_ITERS, SURFACE_SCHEDULE = 32, 300, 100
+K2_DEPTH_COLUMN = 6 + 3  # K2's rows: [x, y, a, b, c, opacity, r, g, b, depth]
 REPO = Path(__file__).resolve().parent
 
 
@@ -692,6 +721,7 @@ def run(ckpt_dir: str) -> int:
         (k1_rec, isect.gaussian_ids, isect.tile_bins, tiles[0]), k1["ms"],
         k1_bytes, k1_ops)
     backend_numbers = backend_phase(Path(ckpt_dir), trainer_numbers)
+    method_numbers = methods_phase(Path(ckpt_dir), counters)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -726,6 +756,8 @@ def run(ckpt_dir: str) -> int:
             entry["library_axis1_ms"] = t["library_axis1_ms"]
         if name in launches:
             entry["launches_render"] = launches[name]
+        entry["launches_methods"] = {
+            run: n[name] for run, n in method_numbers["launches"].items()}
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
@@ -742,6 +774,7 @@ def run(ckpt_dir: str) -> int:
                       "train_step_ms_min": min(ms_steps),
                       "trainer": trainer_numbers, "probes": probe_numbers,
                       "backend": backend_numbers,
+                      "methods": method_numbers,
                       "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -885,14 +918,15 @@ def trainer_vs_plain(trainer) -> None:
     fns = (trainer._step_fn(H, W, sh, False),
            make_train_step(cfg.model, plain_raster, cfg.optim, H, W, sh))
     idx, frame = trainer.datamanager.next_train()
-    camera, gt, mask = trainer._train_inputs(idx, frame, 1)
+    inputs = trainer._train_inputs(idx, frame, 1)
     before = train_state_to_numpy(trainer.state)
     gen_state = trainer.generator.get_state()
     outs = []
     for fn in fns:
         gen = torch.Generator(device=DEVICE)
         gen.set_state(gen_state)
-        s, m = fn(train_state_from_numpy(before, DEVICE), camera, gt, gen, mask)
+        s, m = fn(train_state_from_numpy(before, DEVICE), *inputs[:2], gen,
+                  *inputs[2:])
         torch.cuda.synchronize()
         outs.append((train_state_to_numpy(s), m))
     (got, m_k), (want, m_p) = outs
@@ -951,16 +985,16 @@ def refine_check(trainer) -> dict:
     for _ in range(20):
         idx, frame = trainer.datamanager.next_train()
         t0 = time.perf_counter()
-        camera, gt, mask = trainer._train_inputs(idx, frame, 1)
-        trainer.state, _ = step_fn(trainer.state, camera, gt,
-                                   trainer.generator, mask)
+        inputs = trainer._train_inputs(idx, frame, 1)
+        trainer.state, _ = step_fn(trainer.state, *inputs[:2],
+                                   trainer.generator, *inputs[2:])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     print(f"trainer step at the trained state: median "
           f"{statistics.median(step_ms):.3f} ms, min {min(step_ms):.3f} "
           f"(host clock, synchronized, 20 steps)")
-    trace("trainer step", lambda: step_fn(trainer.state, camera, gt,
-                                          trainer.generator, mask))
+    trace("trainer step", lambda: step_fn(trainer.state, *inputs[:2],
+                                          trainer.generator, *inputs[2:]))
     flat = train_state_to_numpy(trainer.state)
     cap = trainer.state.scene.capacity
     args = (trainer.config.model, trainer.datamanager.num_train,
@@ -1033,13 +1067,14 @@ def cache_check(trainer) -> dict:
     frames = trainer.datamanager.train_frames
     shape = frames[0].image.shape
     checked = train_cache_bytes(len(frames), shape, 4,
-                                frames[0].mask is not None)
+                                frames[0].mask is not None,
+                                frames[0].depth is not None)
     trainer._dev_cache = {}
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, imgs, _ = trainer._device_train_cache(4)
+    _, imgs, *_ = trainer._device_train_cache(4)
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() - base
@@ -1053,7 +1088,7 @@ def cache_check(trainer) -> dict:
           f"stack {full_stack / 2**20:.2f} MiB")
     assert peak <= checked, f"the build peaked at {peak} B over the {checked} B checked"
     for i in (0, len(frames) - 1):
-        _, gt, _ = trainer._frame_to_device(frames[i], 4)
+        gt = trainer._frame_to_device(frames[i], 4)[1]
         assert torch.equal(imgs[i], gt), f"bucket frame {i} differs from the per-frame path"
     stack = torch.from_numpy(stack_np).to(DEVICE)
     assert torch.equal(imgs, area_downscale(stack, 4)), (
@@ -1247,6 +1282,312 @@ def backend_phase(work_dir: Path, trained: dict) -> dict:
     loaded = [m for m in ("PIL", "cv2", "yaml", "torchvision", "transformers")
               if m in sys.modules]
     assert not loaded, f"the back end imported {loaded}"
+    return numbers
+
+
+def methods_phase(work_dir: Path, counters) -> dict:
+    """Phase 14: co-gs, surface-gs and camera optimisation on phase 11's
+    dataset (800x800, 21 train views, the 100k-point seed cloud in 2^19
+    lanes), each path driven with the launch counters reset just before
+    and read just after."""
+    phase("14 methods: a co-gs + camera-opt step vs plain, co-gs and "
+          "surface-gs through gs-train")
+    t0 = time.perf_counter()
+    data = work_dir / "synthetic"
+    trainer, cogs = cogs_run(work_dir, data, counters)
+    step = methods_step(trainer, counters)
+    del trainer
+    surface = surface_run(work_dir, data, counters)
+    launches = {"co_gs_step": step.pop("launches"),
+                "co_gs_run": cogs.pop("launches"),
+                "surface_gs_run": surface.pop("launches")}
+    # read; left in place, the profiler's exit report would print after
+    # the last line
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    wall_s = time.perf_counter() - t0
+    print(f"phase 14 wall time {wall_s:.1f} s")
+    return {"step": step, "co_gs": cogs, "surface_gs": surface,
+            "launches": launches, "wall_s": wall_s}
+
+
+def methods_step(trainer, counters) -> dict:
+    """Phase 14(a): from the co-gs run's trained state (step 300, so with
+    anisotropic scales: at the isotropic kNN init a Gaussian's covariance
+    does not depend on its rotation, the rotations' gradient is exactly 0
+    and both steps give rounding noise there), one co-gs step through the
+    kernels against the same step through the plain twins (``backend=
+    "plain"``), with phase 10's tolerances: sensor depth L1, the sparse term
+    and the planar term (patches of ``PLANAR_PATCH``), SO3xR3 camera
+    optimisation over the 21 train views; both steps draw the background and
+    the patch origins from generators of one seed. K1-K4 launch once; K2's
+    depth column is nonzero, the camera group's gradient finite and
+    nonzero, no moment non-finite. Then the step timed and traced beside
+    the vanilla method's step from the same state, and ``torch.linalg.eigh``
+    on (16, 3, 3) covariances timed."""
+    cfg = trainer.config
+    model = dataclasses.replace(
+        cfg.model, depth_loss_start_iteration=0, planar_loss_start_iteration=0,
+        use_sparse_loss=True, using_planar_loss=True,
+        local_patch_size=PLANAR_PATCH)
+    state = trainer.state
+    step = int(state.step)
+    n_train = trainer.datamanager.num_train
+    assert step % 100 == 0 and state.cam_adjust.shape == (n_train, 6)
+    print(f"co-gs state: step {step}, {n_train} train views, capacity "
+          f"{state.scene.capacity}, {int(state.scene.num_alive)} alive")
+    sh = trainer._sh_degree(step)
+    idx, frame = trainer.datamanager.next_train()
+    inputs = trainer._train_inputs(idx, frame, 1)
+    assert inputs[3] is not None, "the dataset has no sensor depth"
+    index = trainer._camera_index(idx)
+    kernel_fn = make_train_step(model, trainer.raster_cfg, cfg.optim, H, W, sh,
+                                camera_opt=cfg.camera_opt)
+    plain_fn = make_train_step(
+        model, dataclasses.replace(trainer.raster_cfg, backend="plain"),
+        cfg.optim, H, W, sh, camera_opt=cfg.camera_opt)
+    before = train_state_to_numpy(state)
+    run_step = lambda fn, st: fn(
+        st, *inputs[:2], torch.Generator(device=DEVICE).manual_seed(SEED),
+        *inputs[2:], camera_index=index)
+
+    rast = importlib.import_module("gstk_torch.ops.rasterize")
+    k2_rows = []
+
+    def k2_recorded(*args, **kwargs):
+        rows = composite_tiles_bwd(*args, **kwargs)
+        k2_rows.append(rows)
+        return rows
+
+    state_k = train_state_from_numpy(before, DEVICE)
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    rast.composite_tiles_bwd = k2_recorded
+    try:
+        state_k, m_k = run_step(kernel_fn, state_k)
+        torch.cuda.synchronize()
+    finally:
+        rast.composite_tiles_bwd = composite_tiles_bwd
+    launches = launches_of(counters)
+    state_p, m_p = run_step(plain_fn, train_state_from_numpy(before, DEVICE))
+    torch.cuda.synchronize()
+    print(f"launches in one co-gs + camera-opt step: {launches}")
+    for name, n in launches.items():
+        assert n == 1, f"{name} launched {n} times by the co-gs step"
+    got, want = train_state_to_numpy(state_k), train_state_to_numpy(state_p)
+    bad = [k for k, v in got.items()
+           if v.dtype.kind == "f" and not np.isfinite(v).all()]
+    assert not bad, f"non-finite after the co-gs step: {bad}"
+    print(f"co-gs step {step} (view {idx}, {int(m_k['num_intersects'])} "
+          f"intersections):", end=" ")
+    compare_steps(m_k, m_p, before, got, want, cfg.optim, step)
+    terms = {}
+    for k in ("sparse_loss", "depth_l1", "planar_loss"):
+        a, b = float(m_k[k]), float(m_p[k])
+        assert a != 0.0 and math.isclose(a, b, rel_tol=1e-3), (
+            f"{k}: {a} vs plain {b}")
+        terms[k] = [a, b]
+
+    # K2's rows of this step: the depth channel carries a gradient
+    (rows,) = k2_rows
+    col_max = rows.abs().amax(0).tolist()
+    depth_nonzero = int((rows[:, K2_DEPTH_COLUMN] != 0).sum())
+    assert depth_nonzero > 0, "K2's depth column is zero in the co-gs step"
+    # the camera group's gradient, from its first moment before and after
+    cam_key = ".cam_adam/.mu/['camera_opt']"
+    b1 = cfg.optim.b1
+    cam_grad = (got[cam_key] - b1 * before[cam_key]) / (1.0 - b1)
+    assert np.isfinite(cam_grad).all() and np.abs(cam_grad[idx]).max() > 0, (
+        "the camera adjustment got no gradient")
+    cam_scale = 1e-4 * max(float(np.abs(want[cam_key]).max()), 1e-30)
+    cam_bad = int((~np.isclose(got[cam_key], want[cam_key], rtol=RTOL_GRAD,
+                               atol=cam_scale)).sum())
+    assert cam_bad == 0, f"camera moments: {cam_bad} outside the tolerance"
+    d_k = got[".cam_adjust"] - before[".cam_adjust"]
+    d_p = want[".cam_adjust"] - before[".cam_adjust"]
+    co = cfg.camera_opt
+    cam_lr = float(OptimizerConfig(
+        lrs=(("camera_opt", co.lr),),
+        extra_exp=(("camera_opt", co.lr_final, co.max_steps),),
+    ).schedule_for("camera_opt")(torch.tensor(step)))
+    strong = np.abs(want[cam_key]) > 1e-3 * np.abs(want[cam_key]).max()
+    cam_upd = np.where(strong, ~np.isclose(d_k, d_p, rtol=RTOL_GRAD, atol=0.0),
+                       np.abs(d_k - d_p) > 2.0 * cam_lr + 1e-7)
+    assert not cam_upd.any(), "camera adjustment updates differ"
+    print(f"co-gs terms (kernel, plain): {terms}; K2 column max |g| "
+          f"{[round(x, 6) for x in col_max]}, depth column nonzero in "
+          f"{depth_nonzero} of {rows.shape[0]} rows; camera gradient of view "
+          f"{idx} {cam_grad[idx].tolist()}")
+
+    # the step timed and traced beside the vanilla method's step from the
+    # same state, and each with the depth terms or the camera group alone
+    vanilla = VanillaConfig(**{f.name: getattr(model, f.name)
+                               for f in dataclasses.fields(VanillaConfig)})
+    plain_state = {k: v for k, v in before.items() if not k.startswith(".cam")}
+    timed = {}
+    for label, variant, camera in (
+        ("vanilla", vanilla, False), ("vanilla + camera", vanilla, True),
+        ("co-gs terms", model, False), ("co-gs terms + camera", model, True),
+    ):
+        fn = make_train_step(variant, trainer.raster_cfg, cfg.optim, H, W, sh,
+                             camera_opt=cfg.camera_opt if camera else None)
+        st = train_state_from_numpy(before if camera else plain_state, DEVICE)
+        call = lambda fn=fn, st=st, camera=camera: fn(
+            st, *inputs[:2], torch.Generator(device=DEVICE).manual_seed(SEED),
+            *inputs[2:], camera_index=index if camera else None)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        timed[label] = {"ms_median": statistics.median(ms), "ms_min": min(ms),
+                        "traced": trace(f"{label} step", call)}
+        print(f"{label} step ms: median {timed[label]['ms_median']:.3f}, min "
+              f"{timed[label]['ms_min']:.3f} (host clock, synchronized, 5 steps)")
+    base = timed["vanilla"]
+    added = {label: {"device_events": t["traced"]["device_events"]
+                     - base["traced"]["device_events"],
+                     "busy_ms": t["traced"]["busy_ms"] - base["traced"]["busy_ms"],
+                     "ms_median": t["ms_median"] - base["ms_median"]}
+             for label, t in timed.items() if label != "vanilla"}
+    print(f"added to the vanilla step: {added}")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    pts = torch.randn((16, PLANAR_PATCH * PLANAR_PATCH, 3), generator=gen,
+                      device=DEVICE)
+    cov = pts.transpose(1, 2) @ pts / pts.shape[1]
+    eigh = {"device": kernel_device_ms(lambda: torch.linalg.eigh(cov), None, 20),
+            "events_ms": event_ms(lambda: torch.linalg.eigh(cov), 20)}
+    host_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        torch.linalg.eigh(cov)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    eigh["host_ms_median"] = statistics.median(host_ms)
+    print(f"torch.linalg.eigh on (16, 3, 3): {eigh}")
+    return {"launches": launches, "terms": terms, "k2_column_max": col_max,
+            "k2_depth_nonzero_rows": depth_nonzero, "view": idx,
+            "camera_grad": cam_grad[idx].tolist(), "timed": timed,
+            "added_by_methods": added, "eigh": eigh}
+
+
+def method_run(work_dir: Path, data: Path, counters, method: str,
+               extra: list):
+    """``gstk_torch.scripts.train <method>`` for ``METHOD_ITERS`` steps on
+    phase 11's dataset, in process, with the launch counters reset just
+    before: K1-K4 launch and the losses stay finite. Returns the trainer,
+    the numbers printed and the metrics as ``col(key) -> [(step,
+    value)]``."""
+    PROFILER.totals.clear()  # the run's own report
+    PROFILER.counts.clear()
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_main([
+        "--device", DEVICE, method, "--data", str(data),
+        "--output-dir", str(work_dir / "methods"),
+        "--max-num-iterations", str(METHOD_ITERS), "--steps-per-eval-image",
+        "0", "--steps-per-eval-all-images", str(METHOD_ITERS),
+        "--steps-per-save", str(METHOD_ITERS),
+        "--dataparser.eval-mode", "interval", "--dataparser.eval-interval", "8",
+        *extra,
+    ])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launches_of(counters)
+    for name, n in launches.items():
+        assert n >= 1, f"{name} not launched by {method}"
+    rows = [json.loads(line) for line in
+            (trainer.config.run_dir / "metrics.jsonl").open()]
+    col = lambda key: [(r["step"], r[key]) for r in rows if key in r]
+    losses = col("loss")
+    assert losses and all(math.isfinite(v) for _, v in losses), "loss not finite"
+    final_eval = col("eval_psnr")[-1][1]
+    assert math.isfinite(final_eval)
+    # the first log window holds the setup
+    iter_ms = [v * 1e3 for _, v in col("Train Iter (time)")][1:]
+    numbers = {"launches": launches, "run_s": run_s,
+               "step_ms_median": statistics.median(iter_ms),
+               "final_eval_psnr": final_eval, "loss": [losses[0], losses[-1]]}
+    print(f"{method}: {METHOD_ITERS} steps in {run_s:.1f} s (setup, steps, "
+          f"evals, checkpoint); {numbers}")
+    return trainer, numbers, col
+
+
+def cogs_run(work_dir: Path, data: Path, counters):
+    """Phase 14(b): co-gs with sensor depth from step 0 and SO3xR3 camera
+    optimisation; the camera adjustments finite and moved. Reports the
+    depth-L1 term at the first log past its gate (step 0 is shut) and the
+    last. Returns the trainer and the numbers."""
+    trainer, numbers, col = method_run(work_dir, data, counters, "co-gs", [
+        "--model.depth-loss-start-iteration", "0",
+        "--camera-opt.mode", "SO3xR3"])
+    adj = trainer.state.cam_adjust
+    assert adj is not None and bool(torch.isfinite(adj).all())
+    moved = float(adj.abs().max())
+    assert moved > 0, "the camera adjustments never moved"
+    depth = [(st, v) for st, v in col("depth_l1") if st > 0]
+    numbers.update(depth_l1=[depth[0], depth[-1]], cam_adjust_max=moved,
+                   camera_opt=[col("camera_opt_translation")[-1],
+                               col("camera_opt_rotation")[-1]])
+    print(f"co-gs: depth_l1 (step, value) {numbers['depth_l1']}, camera "
+          f"adjustments max |x| {moved:.3g}, (translation, rotation) "
+          f"{numbers['camera_opt']}")
+    return trainer, numbers
+
+
+def surface_run(work_dir: Path, data: Path, counters) -> dict:
+    """Phase 14(c): surface-gs for ``METHOD_ITERS`` steps through the
+    coarse-to-fine schedule (``num_downscales`` 2, a bucket every
+    ``SURFACE_SCHEDULE`` steps: d = 4, 2, 1), refining from step 100; the
+    means of every lane still alive equal the seed cloud's bit for bit,
+    no refine splits or duplicates, no lane past the seed comes alive; the
+    step time of each bucket (the median of its log windows, the window
+    with its cache build left out)."""
+    infos = []
+    refine = trainer_mod.refine
+
+    def recorded(*args, **kwargs):
+        out = refine(*args, **kwargs)
+        infos.append(out[3])
+        return out
+
+    trainer_mod.refine = recorded
+    try:
+        trainer, numbers, col = method_run(work_dir, data, counters, "surface-gs", [
+            "--model.resolution-schedule", str(SURFACE_SCHEDULE),
+            "--model.warmup-length", str(SURFACE_SCHEDULE)])
+    finally:
+        trainer_mod.refine = refine
+    scene = trainer.state.scene
+    pts = trainer.datamanager.seed_points()[0]
+    n = pts.shape[0]
+    alive = scene.alive.detach()
+    assert not bool(alive[n:].any()), "a lane past the seed cloud came alive"
+    seed = torch.from_numpy(np.asarray(pts, np.float32)).to(DEVICE)
+    kept = alive[:n]
+    assert torch.equal(scene.means.detach()[:n][kept], seed[kept]), (
+        "surface-gs moved an alive mean")
+    info = {k: sum(int(i[k]) for i in infos)
+            for k in ("num_split", "num_dup", "num_cull")}
+    assert infos and info["num_split"] == 0 and info["num_dup"] == 0, (
+        f"surface-gs densified: {info}")
+    downscales = trainer.config.model.num_downscales
+    buckets = {}
+    for k in range(downscales + 1):
+        lo = k * SURFACE_SCHEDULE
+        ms = [v * 1e3 for st, v in col("Train Iter (time)")
+              if lo < st < lo + SURFACE_SCHEDULE]
+        buckets[f"d={2 ** (downscales - k)}"] = {
+            "ms_median": statistics.median(ms), "windows": len(ms)}
+    print(f"surface-gs: {int(kept.sum())} of {n} seed lanes alive, their means "
+          f"bit-equal to the seed's; {len(infos)} refines: {info}; step ms by "
+          f"bucket {buckets}")
+    numbers.update(alive=[n, int(kept.sum())], refines=len(infos), refine=info,
+                   step_ms_by_bucket=buckets)
     return numbers
 
 

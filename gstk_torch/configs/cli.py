@@ -5,7 +5,9 @@ The reference exposes every nested config field as a CLI flag via tyro
 this image, so this module provides the same user-facing surface with
 argparse: every field of a (nested) dataclass becomes ``--path.to.field``,
 subcommands select method configs, and parsed values are applied as dataclass
-replacements. Booleans accept explicit True/False values like tyro.
+replacements. Booleans accept explicit True/False values like tyro. Unlike
+gstk_tpu's copy, a ``Literal`` field is a flag with its values as choices
+(``--camera-opt.mode SO3xR3``).
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ def add_dataclass_args(
             parser.add_argument(f"--{name}", type=tp, default=None)
         elif tp is Path:
             parser.add_argument(f"--{name}", type=Path, default=None)
+        elif typing.get_origin(tp) is typing.Literal:
+            parser.add_argument(f"--{name}", type=str, default=None,
+                                choices=[str(v) for v in typing.get_args(tp)])
         elif isinstance(tp, type) and issubclass(tp, enum.Enum):
             parser.add_argument(
                 f"--{name}", type=str, default=None,

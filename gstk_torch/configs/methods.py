@@ -7,9 +7,8 @@ with the reference's hyperparameters:
   * ``co-gs``            — depth/planar-supervised, 30k iters;
   * ``surface-gs``       — frozen-means surface refinement, 15k iters.
 Optimizer LRs are the shared reference dict (method_configs.py:47-81) and
-live in OptimizerConfig defaults. The port trains ``gaussian-splatting``;
-the other two methods' train paths are a later slice (M14), and the trainer
-raises ``NotImplementedError`` for them.
+live in OptimizerConfig defaults. All three train through the port's
+trainer, each with ``camera_opt`` "off", "SO3xR3" or "SE3".
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Surface-constrained Gaussian Splatting ("surface-gs"): the config (port
 of ``gstk_tpu/models/surface.py``).
 
-Vanilla with fixed means and no grad-driven densification. Its train path
-is a later slice (M14): ``make_train_step`` raises ``NotImplementedError``
-for this config until then.
+Vanilla with fixed means and no grad-driven densification: the trainer
+passes ``frozen_groups=FROZEN_GROUPS`` to the train step, so the means get
+zero gradients and never move, and the infinite densify threshold leaves
+split and dup off while alpha and size culling go on.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 
 gstk_tpu writes one ``step-{step:09d}.ckpt.npz`` per save: the flattened
 train state under path keys (``.scene/.means``, ``.adam/.mu/['means']``,
-``.refine/.vis_counts``, ..., ``.step``) plus scalar run metadata under
+``.refine/.vis_counts``, ..., ``.step``, and with camera optimisation
+``.cam_adjust``, ``.cam_adam/.count``, ``.cam_adam/.mu/['camera_opt']``
+and ``.cam_adam/.nu/['camera_opt']``) plus scalar run metadata under
 ``.meta/`` (``isect_capacity``, ``bands``, ``sh_degree``). This module
 reads and writes that layout with numpy alone, so a checkpoint written by
 either package loads in the other: :func:`save_checkpoint` /
@@ -81,8 +83,11 @@ def peek_capacity(path) -> Optional[int]:
     return None
 
 
-def _moment_key(which: str, group: str) -> str:
-    return f".adam/.{which}/['{group}']"
+def _moment_key(which: str, group: str, adam: str = ".adam") -> str:
+    return f"{adam}/.{which}/['{group}']"
+
+
+_CAM_GROUP = "camera_opt"
 
 
 def train_state_to_numpy(state: TrainState) -> Dict[str, np.ndarray]:
@@ -96,13 +101,20 @@ def train_state_to_numpy(state: TrainState) -> Dict[str, np.ndarray]:
     for k in RefineState._fields:
         flat[f".refine/.{k}"] = host(getattr(state.refine, k))
     flat[".step"] = host(state.step)
+    if state.cam_adjust is not None:
+        flat[".cam_adjust"] = host(state.cam_adjust)
+        flat[".cam_adam/.count"] = host(state.cam_adam.count)
+        for which in ("mu", "nu"):
+            flat[_moment_key(which, _CAM_GROUP, ".cam_adam")] = host(
+                getattr(state.cam_adam, which)[_CAM_GROUP])
     return flat
 
 
 def train_state_from_numpy(arrays: Dict[str, np.ndarray],
                            device: DeviceLike = None) -> TrainState:
     """A train state (copies, on ``device``) from arrays under gstk_tpu's
-    checkpoint keys, e.g. an ``np.load`` of its checkpoint."""
+    checkpoint keys, e.g. an ``np.load`` of its checkpoint; the camera-opt
+    group when the arrays hold ``.cam_adjust``."""
     device = resolve_device(device)
     scene = scene_from_numpy(
         {k: arrays[f".scene/.{k}"] for k in FIELD_NAMES}, device
@@ -116,8 +128,18 @@ def train_state_from_numpy(arrays: Dict[str, np.ndarray],
         nu={g: t(_moment_key("nu", g), f32) for g in PARAM_NAMES},
     )
     refine = RefineState(*(t(f".refine/.{k}", f32) for k in RefineState._fields))
+    cam_adjust = cam_adam = None
+    if ".cam_adjust" in arrays:
+        cam_adjust = t(".cam_adjust", f32)
+        cam_adam = AdamState(
+            count=t(".cam_adam/.count", torch.int32),
+            **{which: {_CAM_GROUP: t(_moment_key(which, _CAM_GROUP,
+                                                 ".cam_adam"), f32)}
+               for which in ("mu", "nu")},
+        )
     return TrainState(scene=scene, adam=adam, refine=refine,
-                      step=t(".step", torch.int32))
+                      step=t(".step", torch.int32), cam_adjust=cam_adjust,
+                      cam_adam=cam_adam)
 
 
 def save_checkpoint(ckpt_dir, state: TrainState, keep_only_latest: bool = True,
@@ -143,7 +165,9 @@ def save_checkpoint(ckpt_dir, state: TrainState, keep_only_latest: bool = True,
 def load_checkpoint(path, template: TrainState) -> TrainState:
     """The checkpoint's train state on ``template``'s device. Where the
     template has a larger capacity, arrays are padded with zeros (dead
-    lanes); a key the checkpoint lacks keeps the template's value."""
+    lanes); a key the checkpoint lacks keeps the template's value (the
+    camera-opt group enabled after the checkpoint was written), and one
+    the template lacks is not read."""
     arrays = train_state_to_numpy(template)
     with np.load(path) as data:
         for key, leaf in arrays.items():

@@ -6,8 +6,10 @@ Responsibilities, as in gstk_tpu:
   * build the datamanager, the scene (kNN seed init) and the train state,
     or resume them from a checkpoint with its capacity and raster metadata;
   * per step: pick the coarse-to-fine resolution bucket and the SH degree,
-    take the next train camera from the device-resident cache of the train
-    split, and run the vanilla train step;
+    take the next train camera (image, mask, depth and mono-depth scale and
+    shift) from the device-resident cache of the train split, and run the
+    method's train step (the co-gs depth terms; surface-gs's frozen means;
+    the camera-opt group with the camera's train index);
   * every ``refine_every`` steps run :func:`gstk_torch.train.strategy.refine`;
   * grow the Gaussian capacity, the intersection capacity and the raster
     bands between steps when the fetched counts cross gstk_tpu's thresholds;
@@ -18,9 +20,9 @@ saves), so the loop adds no host sync to a step. Random numbers (random
 backgrounds, split noise) come from one ``torch.Generator`` on the device,
 seeded ``seed + 1``, in place of gstk_tpu's PRNG key.
 
-Not ported yet, and refused at ``setup``: methods other than vanilla and
-camera optimisation (M14), Gaussian sharding, multi-host runs and data
-parallelism over more than one visible device (M15), the viewer (M16).
+Not ported yet, and refused at ``setup``: Gaussian sharding, multi-host
+runs and data parallelism over more than one visible device (M15), the
+viewer (M16).
 gstk_tpu's persistent compile cache has no counterpart in eager PyTorch.
 """
 
@@ -40,6 +42,7 @@ from gstk_torch.core.cameras import Camera
 from gstk_torch.core.gaussians import grow_scene, init_scene
 from gstk_torch.data.datamanager import CachedFrame, FullImageDatamanager
 from gstk_torch.data.dataparser import DataparserConfig
+from gstk_torch.models.surface import FROZEN_GROUPS
 from gstk_torch.models.vanilla import (
     VanillaConfig,
     composite_gt_with_background,
@@ -94,7 +97,7 @@ class TrainerConfig:
     log_every: int = 10
     model: VanillaConfig = dataclasses.field(default_factory=VanillaConfig)
     optim: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
-    # learned camera-pose refinement (mode "off" | "SO3xR3" | "SE3"; M14)
+    # learned camera-pose refinement (mode "off" | "SO3xR3" | "SE3")
     camera_opt: CameraOptConfig = dataclasses.field(
         default_factory=CameraOptConfig
     )
@@ -233,14 +236,16 @@ def area_downscale(images: torch.Tensor, d: int) -> torch.Tensor:
     return torch.einsum("yh,...hwc,xw->...yxc", wy, images, wx)
 
 
-def train_cache_bytes(n: int, shape, d: int, has_mask: bool) -> int:
+def train_cache_bytes(n: int, shape, d: int, has_mask: bool,
+                      has_depth: bool = False) -> int:
     """The device bytes the train cache of ``n`` frames of ``shape`` (H, W,
-    C) reaches while it is built at downscale ``d``: the f32 bucket and the
-    masks it keeps and, for d > 1, one full-resolution f32 frame three
-    times over (the upload and ``area_downscale``'s copy and
-    intermediates, which are no larger)."""
+    C) reaches while it is built at downscale ``d``: the f32 bucket, the
+    masks and the f32 depths it keeps and, for d > 1, one full-resolution
+    f32 frame three times over (the upload and ``area_downscale``'s copy
+    and intermediates, which are no larger)."""
     h, w, c = shape[0], shape[1], shape[2] if len(shape) > 2 else 1
-    kept = n * (h // d) * (w // d) * (c * 4 + (1 if has_mask else 0))
+    kept = n * (h // d) * (w // d) * (
+        c * 4 + (1 if has_mask else 0) + (4 if has_depth else 0))
     if d == 1:
         return kept
     return kept + 3 * h * w * c * 4
@@ -261,6 +266,12 @@ def _cache_images(frames, d: int, device) -> torch.Tensor:
     for i, frame in enumerate(frames):
         out[i] = area_downscale(torch.from_numpy(frame.image).to(device), d)
     return out
+
+
+def _subsample(m: np.ndarray, d: int, h: int, w: int) -> np.ndarray:
+    """A mask or depth map at downscale d: every d-th pixel (no area
+    average), cut to the (h, w) of the downscaled image."""
+    return np.ascontiguousarray(m if d == 1 else m[::d, ::d][:h, :w])
 
 
 def _stack_cameras(frames, d: int, device) -> Camera:
@@ -289,16 +300,6 @@ class Trainer:
     # -- setup ------------------------------------------------------------
     def _check_supported(self) -> None:
         cfg = self.config
-        if type(cfg.model) is not VanillaConfig:
-            raise NotImplementedError(
-                f"{cfg.method_name} ({type(cfg.model).__name__}): only the "
-                "vanilla method trains in gstk_torch so far; the depth and "
-                "surface methods are M14"
-            )
-        if cfg.camera_opt.mode != "off":
-            raise NotImplementedError(
-                "camera optimisation (camera_opt.mode) is not ported yet (M14)"
-            )
         if cfg.param_sharding != "off":
             raise NotImplementedError(
                 "Gaussian sharding (param_sharding) is not ported yet (M15)"
@@ -334,7 +335,14 @@ class Trainer:
             random_scale=cfg.model.random_scale,
             sh_degree=cfg.model.sh_degree, device=self.device,
         )
-        self.state = init_train_state(scene)
+        # the camera-opt group: one adjustment a train view
+        num_cams = (self.datamanager.num_train
+                    if cfg.camera_opt.mode != "off" else None)
+        self.state = init_train_state(scene, num_cameras=num_cams)
+        # train indices on the device, for the camera-opt group: indexing
+        # this keeps the step free of a host-to-device copy
+        self._cam_indices = torch.arange(self.datamanager.num_train,
+                                         dtype=torch.int32, device=self.device)
         self.raster_cfg = RasterizeConfig(
             chunk_size=cfg.raster_chunk, isect_capacity=cfg.isect_capacity
         )
@@ -357,7 +365,8 @@ class Trainer:
                 ckpt_cap = ckpt.peek_capacity(path)
                 if ckpt_cap is not None and ckpt_cap > self.state.scene.capacity:
                     self.state = init_train_state(
-                        grow_scene(self.state.scene, ckpt_cap)
+                        grow_scene(self.state.scene, ckpt_cap),
+                        num_cameras=num_cams,
                     )
                 self.state = ckpt.load_checkpoint(path, self.state)
                 meta = ckpt.peek_meta(path)
@@ -376,8 +385,9 @@ class Trainer:
 
     # -- device-resident training set --------------------------------------
     def _device_train_cache(self, d: int):
-        """(cameras, images, masks) of the whole train split at downscale
-        d, on the device; None (the per-frame path) when frames have mixed
+        """(cameras, images, masks, depths, mono scales, mono shifts) of the
+        whole train split at downscale d, on the device (None where the
+        frames have none); None (the per-frame path) when frames have mixed
         shapes or the device bytes the build reaches
         (:func:`train_cache_bytes`) exceed ``config.device_data_cache_mb``.
         Only the current coarse-to-fine bucket is kept: ``downscale_factor``
@@ -393,48 +403,73 @@ class Trainer:
         if (budget > 0 and frames
                 and all(f.image.shape == shape0 for f in frames)
                 and train_cache_bytes(len(frames), shape0, d,
-                                      frames[0].mask is not None)
+                                      frames[0].mask is not None,
+                                      frames[0].depth is not None)
                 <= budget * (1 << 20)):
             h, w = shape0[0] // d, shape0[1] // d
-            masks = (
+            stack = lambda field: (
                 torch.from_numpy(np.stack(
-                    [f.mask[::d, ::d][:h, :w] for f in frames]
+                    [_subsample(getattr(f, field), d, h, w) for f in frames]
                 )).to(self.device)
-                if frames[0].mask is not None else None
+                if getattr(frames[0], field) is not None else None
+            )
+            scalars = lambda field: (
+                torch.tensor([getattr(f, field) for f in frames],
+                             dtype=torch.float32, device=self.device)
+                if getattr(frames[0], field) is not None else None
             )
             cache = (_stack_cameras(frames, d, self.device),
-                     _cache_images(frames, d, self.device), masks)
+                     _cache_images(frames, d, self.device), stack("mask"),
+                     stack("depth"), scalars("mono_scale"),
+                     scalars("mono_shift"))
         self._dev_cache = {d: cache}
         return cache
 
     def _frame_to_device(self, frame: CachedFrame, d: int):
-        """(camera, gt, mask) of one frame at downscale d (no cache)."""
+        """(camera, gt, mask, depth, mono scale, mono shift) of one frame at
+        downscale d (no cache; None where the frame has none)."""
         img = torch.from_numpy(frame.image).to(self.device)
         if d > 1:
             img = area_downscale(img, d)
+        h, w = img.shape[:2]
         camera = Camera.create(frame.fx / d, frame.fy / d, frame.cx / d,
                                frame.cy / d, frame.c2w, device=self.device)
-        mask = None
-        if frame.mask is not None:
-            m = frame.mask[::d, ::d][: img.shape[0], : img.shape[1]]
-            mask = torch.from_numpy(np.ascontiguousarray(m)).to(self.device)
-        return camera, img, mask
+        maps = [None if m is None else _subsample(m, d, h, w)
+                for m in (frame.mask, frame.depth)]
+        scalars = [None if v is None else np.float32(v)
+                   for v in (frame.mono_scale, frame.mono_shift)]
+        return (camera, img, *(
+            None if x is None else torch.as_tensor(x, device=self.device)
+            for x in maps + scalars))
 
     def _train_inputs(self, cam_idx: int, frame: CachedFrame, d: int):
+        """The step's (camera, gt, mask, depth, mono scale, mono shift) of
+        train view ``cam_idx``: indexed in the device cache, or uploaded."""
         cache = self._device_train_cache(d)
         if cache is None:
             return self._frame_to_device(frame, d)
-        cams, imgs, masks = cache
+        cams, imgs, *rest = cache
         return (_camera_at(cams, cam_idx), _dequantize_image(imgs[cam_idx]),
-                None if masks is None else masks[cam_idx])
+                *(None if x is None else x[cam_idx] for x in rest))
+
+    def _camera_index(self, cam_idx: int) -> Optional[torch.Tensor]:
+        """The step's ``camera_index`` (the train index, a 0-d tensor on the
+        device), or None without camera optimisation."""
+        if self.config.camera_opt.mode == "off":
+            return None
+        return self._cam_indices[cam_idx]
 
     # -- step-function cache (per resolution bucket / sh degree) ----------
     def _step_fn(self, h: int, w: int, sh_degree: int, scale_reg: bool):
         key = (h, w, sh_degree, scale_reg, self.raster_cfg)
         if key not in self._step_cache:
+            frozen = (FROZEN_GROUPS
+                      if getattr(self.config.model, "freeze_means", False)
+                      else ())
             self._step_cache[key] = make_train_step(
                 self.config.model, self.raster_cfg, self.config.optim,
                 h, w, sh_degree, apply_scale_reg=scale_reg,
+                frozen_groups=frozen, camera_opt=self.config.camera_opt,
             )
         return self._step_cache[key]
 
@@ -486,6 +521,8 @@ class Trainer:
             ),
             refine=RefineState(*(pad(x) for x in state.refine)),
             step=state.step,
+            cam_adjust=state.cam_adjust,
+            cam_adam=state.cam_adam,
         )
 
     def _maybe_grow(self, metrics: Dict) -> None:
@@ -567,10 +604,11 @@ class Trainer:
             scale_reg = cfg.model.use_scale_regularization and step % 10 == 0
             step_fn = self._step_fn(h, w, self._sh_degree(step), scale_reg)
             cam_idx, frame = self.datamanager.next_train()
-            camera, gt, mask = self._train_inputs(cam_idx, frame, d)
+            inputs = self._train_inputs(cam_idx, frame, d)
             with timer("train_iteration"):
                 self.state, metrics = step_fn(
-                    self.state, camera, gt, self.generator, mask
+                    self.state, *inputs[:2], self.generator, *inputs[2:],
+                    camera_index=self._camera_index(cam_idx),
                 )
             self._isect_window.append(metrics["num_intersects"])
 

@@ -10,6 +10,11 @@
     gaussian-splatting`` trains 12 steps at 64x48 on it, refining twice,
     and ends with a checkpoint that gstk_tpu's ``load_checkpoint`` reads
     and a final eval line;
+  * co-gs (gstk_tpu's ``tests/test_cli_e2e.py`` case: sensor depth from
+    step 0), co-gs on mono depth (``scale`` / ``shift`` written into the
+    dataset's ``transforms.json``) with SE3 camera optimisation, and
+    surface-gs with SO3xR3 train 6 steps through ``main --device cpu``;
+    each checkpoint loads in gstk_tpu, camera state included;
   * with no card and no ``--device``, the CLI raises.
 """
 
@@ -119,3 +124,76 @@ def test_train_cli_needs_a_device(tmp_path, monkeypatch):
         train_script.main(["gaussian-splatting", "--data", str(tmp_path),
                            "--output-dir", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    from gstk_torch.data.synthetic import generate_synthetic_dataset
+
+    return generate_synthetic_dataset(
+        tmp_path_factory.mktemp("synthetic"), n_points=400, n_views=6,
+        img_wh=(64, 48), device="cpu")
+
+
+def _mono(dataset, out):
+    """A copy of ``dataset`` whose frames carry mono-depth scale and shift."""
+    import shutil
+
+    shutil.copytree(dataset, out)
+    meta = json.loads((out / "transforms.json").read_text())
+    for i, frame in enumerate(meta["frames"]):
+        frame["scale"], frame["shift"] = 0.9 + 0.05 * i, 0.02 * i
+    (out / "transforms.json").write_text(json.dumps(meta))
+    return out
+
+
+CLI_METHODS = {
+    "co-gs": ("co-gs", ["--model.depth-loss-start-iteration", "0"], None,
+              ("depth_l1",)),
+    "co-gs_mono_SE3": ("co-gs", [
+        "--model.depth-loss-start-iteration", "0",
+        "--model.use-est-depth", "True", "--model.use-scaled-est-depth", "True",
+        "--model.use-pearson-depth", "True", "--model.local-patch-size", "16",
+        "--camera-opt.mode", "SE3"], _mono, ("depth_local_pearson", "log_depth")),
+    "surface-gs_SO3xR3": ("surface-gs", ["--camera-opt.mode", "SO3xR3"], None,
+                          ()),
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_METHODS))
+def test_cli_methods_train(case, dataset, tmp_path):
+    method, extra, make_data, terms = CLI_METHODS[case]
+    data = make_data(dataset, tmp_path / "ds") if make_data else dataset
+    out_dir = tmp_path / "out"
+    trainer = train_script.main([
+        "--device", "cpu", method, "--data", str(data),
+        "--output-dir", str(out_dir), "--max-num-iterations", "6",
+        "--steps-per-save", "6", "--steps-per-eval-all-images", "0",
+        "--isect-capacity", str(1 << 13), "--raster-chunk", "16",
+        "--log-every", "1", "--model.sh-degree", "1",
+        "--dataparser.eval-mode", "interval", "--dataparser.eval-interval", "3",
+        "--dataparser.downscale-factor", "1", *extra,
+    ])
+    run_dir = out_dir / data.name / method
+    path = jckpt.latest_checkpoint(run_dir / "ckpts")
+    assert path.name == "step-000000006.ckpt.npz"
+    frames = trainer.datamanager.train_frames
+    assert all(f.depth is not None for f in frames)
+    assert (frames[0].mono_scale is not None) == (make_data is not None)
+    rows = [json.loads(r) for r in (run_dir / "metrics.jsonl").open()]
+    for term in terms:
+        values = [r[term] for r in rows if term in r]
+        assert len(values) == 6 and values[0] == 0.0  # gated at step 0
+        assert all(np.isfinite(v) and v != 0.0 for v in values[1:]), term
+    num_cams = None if "--camera-opt.mode" not in extra else len(frames)
+    state = jckpt.load_checkpoint(path, jinit_train_state(jinit_scene(
+        jax.random.PRNGKey(0), jckpt.peek_capacity(path), num_random=8,
+        sh_degree=1), num_cameras=num_cams))
+    assert int(state.step) == 6
+    if num_cams:
+        adj = np.asarray(state.cam_adjust)
+        assert np.isfinite(adj).all() and np.abs(adj).max() > 0
+    if method == "surface-gs":
+        init = trainer.state.scene.means.detach().numpy()
+        np.testing.assert_array_equal(np.asarray(state.scene.means), init)
+        assert not trainer.state.adam.mu["means"].any()

@@ -505,10 +505,11 @@ def test_dynrow_kernels_equal_twins(cuda, case):
 
 
 def test_train_cache_build_on_the_card(cuda, tmp_path):
-    """24 frames of 800x800 RGBA: the d = 4 bucket built frame by frame on
-    the card equals the per-frame path and ``area_downscale`` of the whole
-    stack bit for bit, and the device peak of the build stays under
-    ``train_cache_bytes``; a uint8 frame dequantizes to n / 255 exactly."""
+    """24 frames of 800x800 RGBA with depth: the d = 4 bucket built frame
+    by frame on the card equals the per-frame path and ``area_downscale``
+    of the whole stack bit for bit, the depths every 4th pixel, and the
+    device peak of the build stays under ``train_cache_bytes``; a uint8
+    frame dequantizes to n / 255 exactly."""
     import types
 
     from gstk_torch.data.datamanager import CachedFrame
@@ -522,7 +523,9 @@ def test_train_cache_build_on_the_card(cuda, tmp_path):
     frames = [CachedFrame(
         image=rng.integers(0, 256, (800, 800, 4)).astype(np.float32) / np.float32(255),
         fx=1000.0, fy=1000.0, cx=400.0, cy=400.0,
-        c2w=np.eye(4, dtype=np.float32)[:3]) for _ in range(24)]
+        c2w=np.eye(4, dtype=np.float32)[:3],
+        depth=rng.uniform(0.5, 5.0, (800, 800)).astype(np.float32))
+        for _ in range(24)]
     trainer = trainer_mod.Trainer(trainer_mod.TrainerConfig(), device=cuda)
     trainer.datamanager = types.SimpleNamespace(train_frames=frames)
     # the process's first matrix product allocates cuBLAS's workspace, once
@@ -531,13 +534,16 @@ def test_train_cache_build_on_the_card(cuda, tmp_path):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    _, imgs, _ = trainer._device_train_cache(4)
+    _, imgs, _, depths, _, _ = trainer._device_train_cache(4)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    assert peak <= trainer_mod.train_cache_bytes(24, (800, 800, 4), 4, False)
+    assert peak <= trainer_mod.train_cache_bytes(24, (800, 800, 4), 4, False,
+                                                 True)
     for i in (0, 5, 23):
-        _, gt, _ = trainer._frame_to_device(frames[i], 4)
-        assert torch.equal(imgs[i], gt)
+        _, gt, _, depth, _, _ = trainer._frame_to_device(frames[i], 4)
+        assert torch.equal(imgs[i], gt) and torch.equal(depths[i], depth)
+        np.testing.assert_array_equal(depth.cpu().numpy(),
+                                      frames[i].depth[::4, ::4])
     stack = torch.from_numpy(np.stack([f.image for f in frames])).to(cuda)
     assert torch.equal(imgs, trainer_mod.area_downscale(stack, 4))
 

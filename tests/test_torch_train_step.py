@@ -26,6 +26,8 @@ Tolerances:
     counts and max radii within the same 0.5% of lanes.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +41,14 @@ from gstk_tpu.ops.rasterize import RasterizeConfig as JRasterizeConfig
 from gstk_tpu.train import checkpoint as jckpt
 from gstk_tpu.train import optim as jopt
 from gstk_tpu.train import step as jstep
+from gstk_tpu.core import camera_opt as jco
+from gstk_tpu.models import depth as jdepth
+from gstk_tpu.models import surface as jsurf
+from gstk_torch.core import camera_opt as tco
 from gstk_torch.core import cameras as tcam
+from gstk_torch.models import depth as tdepth
+from gstk_torch.models import surface as tsurf
+from gstk_torch.utils import losses as tlosses
 from gstk_torch.models import vanilla as tvan
 from gstk_torch.ops.rasterize import RasterizeConfig
 from gstk_torch.train import checkpoint as tckpt
@@ -259,8 +268,9 @@ def test_step_loss_gradients_match_jax(bg, tmp_path):
 
 
 def test_train_step_options_and_later_slices(tmp_path):
-    """A random background needs an explicit generator; the options of later
-    slices raise, naming them."""
+    """A random background needs an explicit generator; camera optimisation
+    works (``camera_opt`` with a state made with ``num_cameras``); data
+    parallelism raises, naming its slice."""
     cfgs = (tvan.VanillaConfig(sh_degree=SH), RasterizeConfig(isect_capacity=ISECT),
             topt.OptimizerConfig(), H, W)
     state = tckpt.train_state_from_numpy(_flat(_jax_state(), tmp_path),
@@ -274,7 +284,167 @@ def test_train_step_options_and_later_slices(tmp_path):
     assert int(state.step) == 1 and np.isfinite(float(m["loss"]))
     with pytest.raises(NotImplementedError, match="M15"):
         tstep.make_train_step(*cfgs, sh_degree=SH, axis_name="data")
-    with pytest.raises(NotImplementedError, match="M14"):
-        tstep.make_train_step(*cfgs, sh_degree=SH, camera_opt=object())
-    with pytest.raises(NotImplementedError, match="M14"):
-        tstep.init_train_state(state.scene, num_cameras=3)
+    cam_fn = tstep.make_train_step(
+        *cfgs, sh_degree=SH, camera_opt=tco.CameraOptConfig(mode="SO3xR3"))
+    cam_state = tstep.init_train_state(state.scene, num_cameras=3)
+    assert cam_state.cam_adjust.shape == (3, 6)
+    assert not cam_state.cam_adjust.any() and int(cam_state.cam_adam.count) == 0
+    cam_state, m = cam_fn(cam_state, _cameras(0)[1], gt,
+                          generator=torch.Generator().manual_seed(0),
+                          camera_index=torch.tensor(1, dtype=torch.int32))
+    assert int(cam_state.cam_adam.count) == 1
+    moved = cam_state.cam_adjust.abs().sum(-1) > 0
+    assert moved[1] and np.isfinite(float(m["camera_opt_rotation"]))
+
+
+# the methods' steps: (package -> config), options, camera-opt mode,
+# micro-batch; each runs 3 steps from step 0 (the depth and planar gates,
+# step > 0, open at step 1; the sparse gate, step % 100 == 0, at step 0)
+_COGS = dict(sh_degree=SH, background_color="black", use_sparse_loss=True,
+             depth_loss_start_iteration=0, using_planar_loss=True,
+             planar_loss_start_iteration=0, local_patch_size=16)
+_MONO = dict(sh_degree=SH, background_color="black", use_est_depth=True,
+             use_pearson_depth=True, use_scaled_est_depth=True,
+             use_depth_regularization=True, using_tv_loss=True,
+             depth_loss_start_iteration=0, local_patch_size=16)
+METHODS = {
+    "co-gs": (lambda pkg: pkg.DepthConfig(**_COGS), {}, "off", 1),
+    "co-gs_mono_masked": (lambda pkg: pkg.DepthConfig(**_MONO), {}, "off", 1),
+    "surface-gs": (lambda pkg: pkg.SurfaceConfig(sh_degree=SH,
+                                                 background_color="white"),
+                   dict(frozen_groups=("means",)), "off", 1),
+    "vanilla_SE3": (lambda pkg: pkg.VanillaConfig(sh_degree=SH,
+                                                  background_color="black"),
+                    {}, "SE3", 1),
+    "co-gs_SO3xR3_micro_batch_2": (lambda pkg: pkg.DepthConfig(**_COGS), {},
+                                   "SO3xR3", 2),
+}
+NUM_CAMERAS = 5
+
+
+def _jax_origins(cfg, key, shape):
+    """The patch origins gstk_tpu's step draws from its key, in the order
+    the port draws them (Pearson, then planar)."""
+    h, w = shape
+    _, kdepth = jax.random.split(key)
+    draw = lambda k, n, size: tuple(
+        torch.from_numpy(np.array(jax.random.randint(
+            kk, (n,), 0, max(lim - size, 1)))) for kk, lim in
+        zip(jax.random.split(k), (w, h)))
+    out = []
+    if not isinstance(cfg, tdepth.DepthConfig):
+        return out
+    if cfg.use_est_depth and cfg.use_pearson_depth:
+        size = min(cfg.local_patch_size, min(shape) - 1)
+        out.append((8, size, draw(jax.random.split(kdepth)[0], 8, size)))
+    if cfg.using_planar_loss:
+        size = min(cfg.local_patch_size, min(shape) // 2)
+        out.append((16, size, draw(kdepth, 16, size)))
+    return out
+
+
+@pytest.mark.parametrize("case", list(METHODS))
+def test_method_step_matches_jax(case, tmp_path, monkeypatch):
+    """co-gs (sensor depth with the sparse and planar terms; the mono-depth
+    terms with a mask and mono scale and shift), surface-gs with frozen
+    means, vanilla with SE3 camera optimisation and co-gs with SO3xR3 at
+    ``micro_batch=2``: three steps of the port against gstk_tpu's
+    ``make_train_step`` from the same state, the camera-opt group included.
+    The port's patch origins are the ones gstk_tpu draws from its key."""
+    make_cfg, kw, mode, micro = METHODS[case]
+    jcfg = make_cfg(types.SimpleNamespace(
+        DepthConfig=jdepth.DepthConfig, SurfaceConfig=jsurf.SurfaceConfig,
+        VanillaConfig=jvan.VanillaConfig))
+    tcfg = make_cfg(types.SimpleNamespace(
+        DepthConfig=tdepth.DepthConfig, SurfaceConfig=tsurf.SurfaceConfig,
+        VanillaConfig=tvan.VanillaConfig))
+    num_cams = NUM_CAMERAS if mode != "off" else None
+    jstate = _jax_state()
+    jstate = jstep.init_train_state(jstate.scene, num_cameras=num_cams)
+    flat0 = _flat(jstate, tmp_path)
+    state = tckpt.train_state_from_numpy(flat0, device="cpu")
+    assert (state.cam_adjust is None) == (num_cams is None)
+    jfn = jax.jit(jstep.make_train_step(
+        jcfg, JRasterizeConfig(isect_capacity=ISECT), jopt.OptimizerConfig(),
+        H, W, sh_degree=SH, camera_opt=jco.CameraOptConfig(mode=mode),
+        micro_batch=micro, **kw,
+    ))
+    tfn = tstep.make_train_step(
+        tcfg, RasterizeConfig(isect_capacity=ISECT), topt.OptimizerConfig(),
+        H, W, sh_degree=SH, camera_opt=tco.CameraOptConfig(mode=mode),
+        micro_batch=micro, **kw,
+    )
+    queue = []
+
+    def jax_drawn(n, size, shape, generator, device):
+        want_n, want_size, origins = queue.pop(0)
+        assert (n, size) == (want_n, want_size)
+        return origins
+
+    monkeypatch.setattr(tlosses, "patch_origins", jax_drawn)
+    cfg = topt.OptimizerConfig()
+    cam_cfg = jco.CameraOptConfig()
+    rng = np.random.default_rng(17)
+    lead = () if micro == 1 else (micro,)
+    before = flat0
+    for i in range(3):
+        key = jax.random.PRNGKey(100 + i)
+        poses = i if micro == 1 else [2 * i, 2 * i + 1]
+        jc, tc = _cameras(poses)
+        gt = rng.uniform(0, 1, lead + (H, W, 3)).astype(np.float32)
+        depth = rng.uniform(2.0, 8.0, lead + (H, W)).astype(np.float32)
+        depth[rng.uniform(size=depth.shape) < 0.2] = 0.0
+        mask = rng.uniform(size=lead + (H, W)) < 0.9
+        scale = np.full(lead, 0.9, np.float32)
+        shift = np.full(lead, 0.1, np.float32)
+        index = (np.int32(i + 1) if micro == 1
+                 else np.array([i, i + 2], np.int32))
+        keys = [key] if micro == 1 else list(jax.random.split(key, micro))
+        for k in keys:
+            queue.extend(_jax_origins(tcfg, k, (H, W)))
+        use_mask = case == "co-gs_mono_masked"
+        jargs = [jnp.asarray(gt), key, jnp.asarray(mask) if use_mask else None,
+                 jnp.asarray(depth), jnp.asarray(scale), jnp.asarray(shift),
+                 jnp.asarray(index) if num_cams else None]
+        targs = [torch.from_numpy(gt), None,
+                 torch.from_numpy(mask) if use_mask else None,
+                 torch.from_numpy(depth), torch.from_numpy(scale),
+                 torch.from_numpy(shift),
+                 torch.as_tensor(index) if num_cams else None]
+        lrs = {g: float(cfg.schedule_for(g)(torch.tensor(i))) for g in GROUPS}
+        jstate, jm = jfn(jstate, jc, *jargs)
+        state, tm = tfn(state, tc, *targs)
+        assert not queue, "the port drew fewer origins than gstk_tpu"
+        for k in ("loss", "main_loss", "psnr"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                       err_msg=f"{case} step {i} {k}")
+        j_flat = _flat(jstate, tmp_path)
+        t_flat = tckpt.train_state_to_numpy(state)
+        assert sorted(t_flat) == sorted(j_flat)
+        _compare_states(f"{case} step {i}", t_flat, j_flat, before, lrs)
+        if num_cams:
+            for k in (".cam_adam/.mu/['camera_opt']",):
+                _grad_close(f"{case} step {i} {k}", t_flat[k], j_flat[k])
+            _grad_close(f"{case} step {i} sqrt cam nu",
+                        np.sqrt(t_flat[".cam_adam/.nu/['camera_opt']"]),
+                        np.sqrt(j_flat[".cam_adam/.nu/['camera_opt']"]))
+            d_t = t_flat[".cam_adjust"] - before[".cam_adjust"]
+            d_j = j_flat[".cam_adjust"] - before[".cam_adjust"]
+            lr = float(jopt.exponential_decay(
+                cam_cfg.lr, cam_cfg.lr_final, cam_cfg.max_steps)(i))
+            np.testing.assert_allclose(d_t, d_j, rtol=RTOL_GRAD,
+                                       atol=2.0 * lr * 1e-3)
+            np.testing.assert_array_equal(t_flat[".cam_adam/.count"],
+                                          j_flat[".cam_adam/.count"])
+            for k in ("camera_opt_translation", "camera_opt_rotation"):
+                np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                           rtol=RTOL_GRAD)
+            moved = np.abs(d_t).sum(-1) > 0
+            assert moved[np.atleast_1d(index)].all()
+        if isinstance(tcfg, tdepth.DepthConfig):
+            assert "depth_l1" in tm or "depth_local_pearson" in tm
+        if "frozen_groups" in kw:
+            assert not t_flat[".adam/.mu/['means']"].any()
+            np.testing.assert_array_equal(t_flat[".scene/.means"],
+                                          flat0[".scene/.means"])
+        before = j_flat
