@@ -1,5 +1,6 @@
-"""Drive gstk_torch's render, train, eval and export paths and its three
-methods on one CUDA card and check them.
+"""Drive gstk_torch's render, train, eval and export paths, its three
+methods, the raytraced data, mono co-gs and the live viewer on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -129,12 +130,41 @@ line:
      mean equals the seed cloud's bit for bit, no split or dup, the step
      time of each bucket; (b) and (c) with the counters reset just before
      each and K1-K4 launched; the phase's wall time;
+  15. data and viewer: (a) ``gstk_torch.data.raytraced`` writes 24 views of
+     the raytraced scene at 800x800 with 3x3 supersampling on the card, and
+     4 at ss 1 (seconds a view, files included, and the shading alone;
+     device peak); one view at ss 1 shaded on the card against the CPU:
+     RGBA and depth equal in >= 99.9% of pixels, alpha equal, depth within
+     1 mm; (b) ``gstk_torch.tools.make_mono_depth`` writes its mono-depth
+     variant (its recovery report; it refuses above a 2% median scale
+     error) and co-gs trains on it through gs-train for 300 steps with the
+     est-depth terms (Pearson, scaled estimate, regulariser) from step 0,
+     the counters reset just before: K1-K4 launch, losses and terms finite
+     (``ITER_TRAIN_TIME``, the terms at the first and last log past step
+     0, final eval PSNR and SSIM); (c) gs-viewer (``python -m
+     gstk_torch.scripts.viewer``) on that run as a subprocess on a free
+     port, which must load within 180 s and is killed afterwards, answers
+     ``/``, 10 rgb ``/render`` at 640x480 over an orbit, 2 depth, 2 with the
+     crop box, a keyframe pair with ``/trajectory`` and one
+     ``/render_traj``, each PNG decoded by ``read_png`` (shape, not blank);
+     the same requests to an in-process ``TrainingViewer`` served alike,
+     with the counters reset just before, give equal frames and one K1 and
+     one K3 a frame; frame 0 against the plain twins' render (uint8 within
+     1 level, 0.1% of pixels outside); request ms (host clock), the
+     ``encode_png`` ms and one traced render; (d) 200 vanilla steps on
+     15(a)'s data without a viewer and with ``--vis viewer`` while a client
+     thread requests ``/render`` every 50 ms, the counters reset before
+     each: ``ITER_TRAIN_TIME`` of both, frames served, none blank after the
+     first snapshot, and K1 and K3 of the viewer's run equal the other
+     run's plus one a frame rendered from a snapshot (K2, K4 equal);
+     Pillow, OpenCV and PyYAML stay unimported;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
-bounds, and phase 14's launches under ``launches_methods``; P1-P3:
+bounds, phase 14's launches under ``launches_methods`` and phase 15's
+under ``launches_data_viewer``; P1-P3:
 launches in phase 12's run of the probes; phase 11's numbers under
 ``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
 view and a frame included, under ``backend``, phase 14's under
-``methods``), the card's name and power limit, and the last line ``{"ok":
+``methods``, phase 15's under ``data_viewer``), the card's name and power limit, and the last line ``{"ok":
 true, "device": {...}}``.
 Kernel times are torch.profiler's device time; a kernel it records no
 launch of after three sessions fails the run.
@@ -147,11 +177,14 @@ import dataclasses
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import zlib
 from pathlib import Path
 
@@ -190,6 +223,15 @@ from gstk_torch.configs.methods import method_configs
 from gstk_torch.configs.serialize import load_config
 from gstk_torch.core.camera_opt import CameraOptConfig
 from gstk_torch.data.datamanager import FullImageDatamanager
+from gstk_torch.data.dataparser import parse_transforms
+from gstk_torch.data.raytraced import (
+    build_scene,
+    camera_dirs,
+    generate_raytraced_dataset,
+    render_view,
+    view_images,
+    view_pose,
+)
 from gstk_torch.data.synthetic import ISECT_CAPACITY, generate_synthetic_dataset
 from gstk_torch.exporter.poisson import poisson_indicator
 from gstk_torch.exporter.tsdf import integrate_frames, make_volume, marching_tetrahedra
@@ -198,7 +240,7 @@ from gstk_torch.scripts import eval as eval_cli
 from gstk_torch.scripts import export as export_cli
 from gstk_torch.scripts import render as render_cli
 from gstk_torch.scripts.train import main as train_main
-from gstk_torch.tools import ablate_fwd, bench_dynrow, kernel_device_ms
+from gstk_torch.tools import ablate_fwd, bench_dynrow, kernel_device_ms, make_mono_depth
 from gstk_torch.train.checkpoint import (
     save_scene,
     train_state_from_numpy,
@@ -211,9 +253,16 @@ from gstk_torch.train import trainer as trainer_mod
 from gstk_torch.train.trainer import Trainer, area_downscale, train_cache_bytes
 from gstk_torch.utils.colors import EVAL_BACKGROUND
 from gstk_torch.utils import losses
-from gstk_torch.utils.io import read_ply, read_png, read_ply_points, write_ply
+from gstk_torch.utils.io import encode_png, read_ply, read_png, read_ply_points, write_ply
 from gstk_torch.utils.lpips import lpips, random_lpips_params
 from gstk_torch.utils.profiler import PROFILER
+from gstk_torch.viewer import http_viewer
+from gstk_torch.viewer.http_viewer import (
+    DEFAULT_SETTINGS,
+    FRAME_PNG_LEVEL,
+    TrainingViewer,
+    orbit_pose,
+)
 
 SEED = 0
 N_POINTS, CAPACITY, SH_DEGREE = 100_000, 104 * 1024, 3
@@ -261,6 +310,16 @@ TSDF_ATOL, TSDF_OUTSIDE = 1e-5, 1e-3  # voxels where a round of u or v flips
 # open), surface-gs's buckets 100 each
 PLANAR_PATCH, METHOD_ITERS, SURFACE_SCHEDULE = 32, 300, 100
 K2_DEPTH_COLUMN = 6 + 3  # K2's rows: [x, y, a, b, c, opacity, r, g, b, depth]
+# phase 15: the raytraced scene at 800x800 with 3x3 supersampling, 24 views
+# (cut from the quality reference's 240); 4 views at ss 1 timed beside it
+RT_VIEWS, RT_SS, RT_SS1_VIEWS = 24, 3, 4
+RT_EQUAL = 0.999  # pixels and depths of the card's view equal to the CPU's
+MONO_MAX_ERR = 0.02  # the mono tool's own refusal threshold
+# gs-viewer: 10 rgb frames over an orbit at the viewer's default 640x480,
+# elevation 0.35 rad; the crop box half-width as a share of the radius
+VIEWER_REQUESTS, VIEWER_W, VIEWER_H, VIEWER_EL, VIEWER_CROP = 10, 640, 480, 0.35, 0.3
+VIEWER_DEADLINE_S = 180  # gs-viewer must print its port and load the scene by then
+VIEWER_ITERS, POLL_S = 200, 0.05  # 15(d): steps a run; the client's poll period
 REPO = Path(__file__).resolve().parent
 
 
@@ -722,6 +781,7 @@ def run(ckpt_dir: str) -> int:
         k1_bytes, k1_ops)
     backend_numbers = backend_phase(Path(ckpt_dir), trainer_numbers)
     method_numbers = methods_phase(Path(ckpt_dir), counters)
+    data_numbers = data_viewer_phase(Path(ckpt_dir), counters)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -758,6 +818,8 @@ def run(ckpt_dir: str) -> int:
             entry["launches_render"] = launches[name]
         entry["launches_methods"] = {
             run: n[name] for run, n in method_numbers["launches"].items()}
+        entry["launches_data_viewer"] = {
+            run: n[name] for run, n in data_numbers["launches"].items()}
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
@@ -775,6 +837,7 @@ def run(ckpt_dir: str) -> int:
                       "trainer": trainer_numbers, "probes": probe_numbers,
                       "backend": backend_numbers,
                       "methods": method_numbers,
+                      "data_viewer": data_numbers,
                       "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1589,6 +1652,401 @@ def surface_run(work_dir: Path, data: Path, counters) -> dict:
     numbers.update(alive=[n, int(kept.sum())], refines=len(infos), refine=info,
                    step_ms_by_bucket=buckets)
     return numbers
+
+
+def data_viewer_phase(work_dir: Path, counters) -> dict:
+    """Phase 15: the raytraced dataset on the card, its mono-depth variant
+    and mono co-gs through gs-train, gs-viewer on that run, and training
+    with a polled viewer; each path driven with the launch counters reset
+    just before and read just after."""
+    phase("15 data and viewer: raytraced data, mono co-gs, gs-viewer, "
+          "training with a viewer")
+    t0 = time.perf_counter()
+    data, raytraced = raytraced_check(work_dir)
+    mono, run_dir = mono_run(work_dir, data, counters)
+    viewer, orbit = viewer_check(run_dir, work_dir / "viewer", counters)
+    polled = polled_training(work_dir, data, counters, orbit)
+    launches = {"mono_co_gs_run": mono.pop("launches"),
+                "viewer_requests": viewer.pop("launches"),
+                "train_without_viewer": polled["without"].pop("launches"),
+                "train_with_viewer": polled["with"].pop("launches")}
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    loaded = [m for m in ("PIL", "cv2", "yaml") if m in sys.modules]
+    assert not loaded, f"phase 15 imported {loaded}"
+    wall_s = time.perf_counter() - t0
+    print(f"phase 15 wall time {wall_s:.1f} s")
+    return {"raytraced": raytraced, "mono_co_gs": mono, "viewer": viewer,
+            "polled_training": polled, "launches": launches, "wall_s": wall_s}
+
+
+def synchronized_s(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def raytraced_check(work_dir: Path):
+    """15(a): ``RT_VIEWS`` views at 800x800 with ss 3 written on the card,
+    and ``RT_SS1_VIEWS`` at ss 1; seconds a view (the generator's wall
+    time, files included, and the shading alone, synchronized) and the
+    device peak; one view at ss 1 shaded on the card against the CPU: RGBA
+    equal in >= 99.9% of pixels, alpha equal, depth equal in >= 99.9% and
+    within 1 mm elsewhere."""
+    data = work_dir / "raytraced"
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by the earlier phases
+    ss3_s = synchronized_s(lambda: generate_raytraced_dataset(
+        data, n_views=RT_VIEWS, img_wh=(W, H), supersample=RT_SS,
+        device=DEVICE)) / RT_VIEWS
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+    ss1_s = synchronized_s(lambda: generate_raytraced_dataset(
+        work_dir / "raytraced_ss1", n_views=RT_SS1_VIEWS, img_wh=(W, H),
+        device=DEVICE)) / RT_SS1_VIEWS
+    meta = json.loads((data / "transforms.json").read_text())
+    assert len(meta["frames"]) == RT_VIEWS
+    n_seed = len(read_ply_points(data / "sparse.ply")[0])
+    assert 0 < n_seed <= min(RT_VIEWS * 4000, 160_000), n_seed
+    objs = build_scene()
+    fx, c2w = meta["fl_x"], view_pose(0, RT_VIEWS)  # the low ring: sky too
+    shade_s = {}
+    for ss in (1, RT_SS):
+        dirs = camera_dirs(W, H, fx, W / 2.0, H / 2.0, ss)
+        shade_s[ss] = statistics.median(
+            synchronized_s(lambda: render_view(objs, c2w, dirs, DEVICE))
+            for _ in range(3))
+    dirs = camera_dirs(W, H, fx, W / 2.0, H / 2.0, 1)
+    views = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        rgb, t, hit, _ = render_view(objs, c2w, dirs, dev)
+        views[dev] = view_images(rgb.cpu().numpy(), t.cpu().numpy(),
+                                 hit.cpu().numpy(), H, W)
+        if dev == "cpu":
+            cpu_s = time.perf_counter() - t0
+    (img, depth), (img_c, depth_c) = views[DEVICE], views["cpu"]
+    assert np.array_equal(img[..., 3], img_c[..., 3]), "alpha differs"
+    rgba_equal = float((img == img_c).all(-1).mean())
+    depth_equal = float((depth == depth_c).mean())
+    depth_diff = int(np.abs(depth.astype(np.int64) - depth_c).max())
+    hit_share = float((img[..., 3] > 0).mean())
+    print(f"raytraced: {RT_VIEWS} views at {W}x{H} ss {RT_SS}: {ss3_s:.3f} s a "
+          f"view (generator wall, PNGs included), device peak {peak_mib:.1f} "
+          f"MiB over what earlier phases hold; ss 1: {ss1_s:.3f} s a view; shading alone (synchronized, "
+          f"median of 3): ss 1 {shade_s[1]:.4f} s, ss {RT_SS} "
+          f"{shade_s[RT_SS]:.4f} s; seed cloud {n_seed} points")
+    print(f"raytraced view 0 at ss 1, card vs CPU ({cpu_s:.1f} s on the CPU): "
+          f"RGBA equal in {rgba_equal:.6f} of pixels, depth equal in "
+          f"{depth_equal:.6f}, max depth diff {depth_diff} mm, alpha equal; "
+          f"{hit_share:.3f} of pixels hit")
+    assert hit_share > 0
+    assert rgba_equal >= RT_EQUAL and depth_equal >= RT_EQUAL and depth_diff <= 1
+    return data, {"views": RT_VIEWS, "ss": RT_SS, "s_per_view_ss3": ss3_s,
+                  "s_per_view_ss1": ss1_s, "shade_s_ss1": shade_s[1],
+                  "shade_s_ss3": shade_s[RT_SS], "peak_mib": peak_mib,
+                  "seed_points": n_seed, "cpu_view_s": cpu_s,
+                  "rgba_equal": rgba_equal, "depth_equal": depth_equal,
+                  "depth_max_diff_mm": depth_diff}
+
+
+def mono_run(work_dir: Path, data: Path, counters):
+    """15(b): the mono-depth variant (``make_mono_depth``, which refuses
+    above a 2% median scale error), then co-gs on it through gs-train for
+    ``METHOD_ITERS`` steps with every est-depth term from step 0; K1-K4
+    launch, the losses and the terms stay finite. Returns the numbers and
+    the run directory."""
+    mono = work_dir / "raytraced_mono"
+    t0 = time.perf_counter()
+    report = make_mono_depth.main(["--data", str(data), "--out", str(mono)])
+    tool_s = time.perf_counter() - t0
+    assert report["median_rel_scale_error"] <= MONO_MAX_ERR, report
+    trainer, numbers, col = method_run(work_dir, mono, counters, "co-gs", [
+        "--model.use-est-depth", "True", "--model.use-pearson-depth", "True",
+        "--model.use-scaled-est-depth", "True",
+        "--model.use-depth-regularization", "True",
+        "--model.depth-loss-start-iteration", "0"])
+    terms = {}
+    for key in ("depth_local_pearson", "log_depth", "depth_reg_loss"):
+        logged = [(st, v) for st, v in col(key) if st > 0]  # step 0 is shut
+        assert logged and all(math.isfinite(v) for _, v in logged), key
+        terms[key] = [logged[0], logged[-1]]
+    run_dir = trainer.config.run_dir
+    numbers.update(report=report, tool_s=tool_s, terms=terms,
+                   final_eval_ssim=col("eval_ssim")[-1][1],
+                   capacity=trainer.state.scene.capacity)
+    print(f"make_mono_depth: {report} in {tool_s:.1f} s; mono co-gs depth "
+          f"terms (step, value) first and last log past step 0: {terms}; "
+          f"final eval PSNR {numbers['final_eval_psnr']:.3f}, SSIM "
+          f"{numbers['final_eval_ssim']:.4f}; capacity {numbers['capacity']}")
+    return numbers, run_dir
+
+
+def _png(body: bytes, path: Path) -> np.ndarray:
+    path.write_bytes(body)
+    return read_png(path)
+
+
+def _http(base: str, path: str, data=None) -> tuple:
+    """(body, host-clock ms) of one request; ``data`` is POSTed as JSON."""
+    req = urllib.request.Request(
+        base + path, data=None if data is None else json.dumps(data).encode())
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        body = resp.read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def _orbit_path(orbit: dict, az: float) -> str:
+    """The ``/render`` request of the orbit pose at azimuth ``az``."""
+    cx, cy, cz = orbit["center"]  # repr: the server parses the same floats
+    return (f"/render?az={az!r}&el={VIEWER_EL!r}&r={orbit['r']!r}"
+            f"&cx={cx!r}&cy={cy!r}&cz={cz!r}")
+
+
+def viewer_requests(base: str, orbit: dict, out: Path) -> dict:
+    """The request sequence of 15(c): ``/``, ``VIEWER_REQUESTS`` rgb frames
+    over an orbit, 2 depth and 2 crop-box frames, a keyframe pair with its
+    trajectory and one trajectory frame. Every frame is decoded and
+    checked: 480x640x3 uint8, not blank, depth frames grey."""
+    assert b"gstk_torch viewer" in _http(base, "/")[0]
+    paths = [_orbit_path(orbit, 2 * math.pi * i / VIEWER_REQUESTS)
+             for i in range(VIEWER_REQUESTS)]
+    frames, ms = {}, []
+
+    def frame(name, path):
+        body, t = _http(base, path)
+        img = _png(body, out / f"{name}.png")
+        assert img.shape == (VIEWER_H, VIEWER_W, 3) and img.dtype == np.uint8, (
+            name, img.shape)
+        assert len(np.unique(img)) > 16, f"{name}: a blank frame"
+        frames[name] = (body, img)
+        return t
+
+    frame("warm-up", paths[0])  # the process's first render
+    for i, path in enumerate(paths):
+        ms.append(frame(f"rgb{i}", path))
+    _http(base, "/settings", {"output": "depth"})
+    for i in range(2):
+        frame(f"depth{i}", paths[3 * i])
+        img = frames[f"depth{i}"][1]
+        assert (img[..., 0] == img[..., 1]).all() and (img[..., 1] == img[..., 2]).all()
+    half = VIEWER_CROP * orbit["r"]
+    _http(base, "/settings", {"output": "rgb", "crop_enabled": True,
+                              "crop_min": [c - half for c in orbit["center"]],
+                              "crop_max": [c + half for c in orbit["center"]]})
+    for i in range(2):
+        frame(f"crop{i}", paths[3 * i])
+    _http(base, "/settings", {"crop_enabled": False})
+    for az in (0.3, 1.3):
+        _http(base, _orbit_path(orbit, az).replace("/render", "/keyframe/add"))
+    path = json.loads(_http(base, "/trajectory?steps=8")[0])
+    assert len(path["camera_path"]) == 9
+    frame("traj3", "/render_traj?i=3")
+    return {"frames": frames, "rgb_ms": ms}
+
+
+def viewer_check(run_dir: Path, out: Path, counters) -> dict:
+    """15(c): gs-viewer (``python -m gstk_torch.scripts.viewer``) on the
+    mono co-gs run, a subprocess on a free port, answers
+    :func:`viewer_requests` (it must print its port and answer ``/`` within
+    ``VIEWER_DEADLINE_S``, and is killed afterwards); the same sequence
+    through an in-process ``TrainingViewer`` served alike, with the
+    counters reset just before (K1 and K3 once a frame), gives the same
+    frames; frame 0 against the plain twins' render of the same pose
+    (uint8 within 1 level, 0.1% of pixels outside); request and encode
+    times; one traced in-process render."""
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = run_dir / "config.yml"
+    config = load_config(cfg)
+    renderer = Renderer(run_dir / "ckpts", model_config=config.model, device=DEVICE)
+    # the orbit: around the median of the alive means, at the train
+    # cameras' median distance from it
+    scene = renderer.scene
+    center = scene.means.detach()[scene.alive].median(dim=0).values.cpu().numpy()
+    poses = parse_transforms(config.dataparser, "train").poses
+    radius = float(np.median(np.linalg.norm(poses[:, :3, 3] - center, axis=-1)))
+    orbit = {"center": [float(c) for c in center], "r": radius}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gstk_torch.scripts.viewer", "--load-config",
+         str(cfg), "--port", "0", "--device", DEVICE], cwd=REPO, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        deadline = time.monotonic() + VIEWER_DEADLINE_S
+        port = None
+        while time.monotonic() < deadline and proc.poll() is None:
+            text = "".join(lines)
+            found = re.search(r"http://localhost:(\d+)", text)
+            if found and "Ctrl-C to exit" in text:  # the scene is in
+                port = int(found.group(1))
+                break
+            time.sleep(0.2)
+        assert port is not None, f"gs-viewer did not start: {''.join(lines)[-3000:]}"
+        start_s = VIEWER_DEADLINE_S - (deadline - time.monotonic())
+        served = viewer_requests(f"http://127.0.0.1:{port}", orbit, out)
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+    reader.join(timeout=10)
+    ms = served["rgb_ms"]
+    print(f"gs-viewer: up in {start_s:.1f} s, {len(served['frames'])} frames "
+          f"at {VIEWER_W}x{VIEWER_H}; rgb /render host-clock ms median "
+          f"{statistics.median(ms):.3f}, min {min(ms):.3f}")
+
+    kernel = TrainingViewer(config.model, renderer.raster_config,
+                            host="127.0.0.1", port=0, device=DEVICE).start()
+    plain = TrainingViewer(
+        config.model, dataclasses.replace(renderer.raster_config, backend="plain"),
+        host="127.0.0.1", port=0, device=DEVICE)
+    try:
+        # the snapshot the trainer takes at each log step: a clone
+        clone_ms = statistics.median(
+            synchronized_s(lambda: kernel.update_scene(renderer.scene)) * 1e3
+            for _ in range(5))
+        kernel.update_scene(renderer.scene, {"step": renderer.step})
+        plain.update_scene(renderer.scene)
+        torch.cuda.synchronize()
+        for f in counters:
+            f.launches = 0
+        mine = viewer_requests(f"http://127.0.0.1:{kernel.server.port}", orbit,
+                               out)
+        torch.cuda.synchronize()
+        launches = launches_of(counters)
+        n_frames = len(mine["frames"])
+        assert launches["composite_tiles_fwd"] == n_frames, launches
+        assert launches["segment_broadcast"] == n_frames, launches
+        for name, (body, img) in served["frames"].items():
+            assert np.array_equal(mine["frames"][name][1], img), (
+                f"gs-viewer's frame {name} differs from the in-process one")
+        c2w = orbit_pose(0.0, VIEWER_EL, orbit["r"], orbit["center"])
+        want = plain.render(c2w, VIEWER_H, VIEWER_W, DEFAULT_SETTINGS)
+        got = served["frames"]["rgb0"][1]
+        diff = np.abs(got.astype(np.int64) - want).max(-1)
+        outside = float((diff > 1).mean())
+        assert outside <= 1e-3, f"frame vs plain twins: {outside} outside"
+        enc = {}
+        for level in (FRAME_PNG_LEVEL, -1):
+            t = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                encode_png(got, level)
+                t.append((time.perf_counter() - t0) * 1e3)
+            enc[level] = statistics.median(t)
+        traced = trace(f"in-process /render {VIEWER_W}x{VIEWER_H} (render + "
+                       "encode)", lambda: encode_png(kernel.render(
+                           c2w, VIEWER_H, VIEWER_W, DEFAULT_SETTINGS),
+                           FRAME_PNG_LEVEL))
+    finally:
+        kernel.stop()
+        plain.stop()
+    print(f"viewer: in-process launches {launches} over {n_frames} frames, "
+          f"equal to gs-viewer's; frame 0 vs plain twins: {outside:.6f} of "
+          f"pixels over 1 level, max {int(diff.max())}; encode_png "
+          f"{VIEWER_W}x{VIEWER_H} (host, median of 10): level "
+          f"{FRAME_PNG_LEVEL} {enc[FRAME_PNG_LEVEL]:.3f} ms, default "
+          f"{enc[-1]:.3f} ms; update_scene (a clone of {renderer.scene.capacity} "
+          f"lanes, synchronized, median of 5) {clone_ms:.3f} ms")
+    return {"launches": launches, "frames": n_frames, "start_s": start_s,
+            "request_ms_median": statistics.median(ms),
+            "request_ms_min": min(ms), "encode_png_ms": enc[FRAME_PNG_LEVEL],
+            "encode_png_default_ms": enc[-1], "plain_outside": outside,
+            "capacity": renderer.scene.capacity, "update_scene_ms": clone_ms,
+            "orbit": orbit,
+            "trace": traced}, orbit
+
+
+def polled_training(work_dir: Path, data: Path, counters, orbit: dict) -> dict:
+    """15(d): ``VIEWER_ITERS`` vanilla steps on the raytraced data at
+    800x800 without a viewer, then with ``--vis viewer`` while a client
+    thread requests ``/render`` every ``POLL_S``; the counters reset just
+    before each run. Every frame served after the first snapshot is not
+    blank, and the counters of the viewer's run equal the other run's plus
+    one K1 and one K3 a frame rendered from a snapshot."""
+    runs = {}
+    for name in ("without", "with"):
+        servers, bodies, errors = [], [], []
+        done = threading.Event()
+        start = http_viewer.ViewerServer.start
+
+        def start_and_record(self):
+            servers.append(self)
+            return start(self)
+
+        def poll():
+            while not servers and not done.is_set():
+                time.sleep(0.01)
+            if servers:
+                base = f"http://127.0.0.1:{servers[0].port}"
+                try:
+                    while not done.is_set():
+                        bodies.append(_http(base, _orbit_path(orbit, 0.4))[0])
+                        time.sleep(POLL_S)
+                except Exception as exc:  # reported below
+                    errors.append(repr(exc))
+
+        http_viewer.ViewerServer.start = start_and_record
+        poller = threading.Thread(target=poll)
+        poller.start()
+        for f in counters:
+            f.launches = 0
+        try:
+            trainer = train_main([
+                "--device", DEVICE, "gaussian-splatting", "--data", str(data),
+                "--output-dir", str(work_dir / "polled"),
+                "--experiment-name", f"{name}_viewer",
+                "--max-num-iterations", str(VIEWER_ITERS),
+                "--model.num-downscales", "0", "--steps-per-eval-image", "0",
+                "--steps-per-eval-all-images", "0", "--steps-per-save", "0",
+                "--dataparser.eval-mode", "interval",
+                "--dataparser.eval-interval", "8",
+                *(["--vis", "viewer", "--viewer-port", "0"] if name == "with"
+                  else [])])
+        finally:
+            done.set()
+            poller.join(timeout=120)
+            http_viewer.ViewerServer.start = start
+            for server in servers:
+                server.stop()
+        torch.cuda.synchronize()
+        assert not poller.is_alive() and not errors, errors
+        launches = launches_of(counters)
+        rows = [json.loads(line) for line in
+                (trainer.config.run_dir / "metrics.jsonl").open()]
+        iter_ms = [r["Train Iter (time)"] * 1e3 for r in rows
+                   if "Train Iter (time)" in r][1:]
+        runs[name] = {"launches": launches, "requests": len(bodies),
+                      "step_ms_median": statistics.median(iter_ms),
+                      "step_ms_min": min(iter_ms)}
+        if name == "with":
+            imgs = [_png(b, work_dir / "polled.png") for b in bodies]
+            lit = [bool(img.any()) for img in imgs]  # black: no snapshot yet
+            first = lit.index(True)
+            assert all(len(np.unique(img)) > 16 for img in imgs[first:]), (
+                "a blank frame after the first snapshot")
+            runs[name].update(frames_from_snapshot=sum(lit), first_lit=first)
+        del trainer
+    lit = runs["with"]["frames_from_snapshot"]
+    base_l, with_l = runs["without"]["launches"], runs["with"]["launches"]
+    for k in ("composite_tiles_fwd", "segment_broadcast"):
+        assert with_l[k] == base_l[k] + lit, (k, with_l[k], base_l[k], lit)
+    for k in ("composite_tiles_bwd", "segment_sum_sorted"):
+        assert with_l[k] == base_l[k], (k, with_l[k], base_l[k])
+    print(f"polled training, {VIEWER_ITERS} steps at {W}x{H}: ITER_TRAIN_TIME "
+          f"median {runs['with']['step_ms_median']:.3f} ms with the viewer "
+          f"polled every {POLL_S * 1e3:.0f} ms ({runs['with']['requests']} "
+          f"frames, {lit} from a snapshot, none blank after the first), "
+          f"{runs['without']['step_ms_median']:.3f} ms without; launches "
+          f"{with_l} = {base_l} + {lit} frames")
+    return runs
 
 
 def launches_of(counters) -> dict:

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import List
@@ -30,6 +31,10 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "gstk_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libgstk_torch.so"
+# the first load builds; a render thread (the viewer's) and the trainer may
+# both reach it, and the build's scratch directory is one per process
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()  # the wrappers' launch counters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,9 +125,14 @@ def build() -> BuildResult:
     return BuildResult(lib, log.read_text(), time.perf_counter() - t0, True)
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().library))
     lib.gstk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gstk_cuda_error_string.restype = ctypes.c_char_p
@@ -136,6 +146,14 @@ def kernel_function(name: str, argtypes) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of kernel launches a
+    wrapper keeps; the lock keeps the count whole when threads launch
+    together (``+=`` on an attribute is a read, an add and a write)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(name: str, err: int) -> None:

@@ -364,7 +364,7 @@ def composite_tiles_fwd(
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check("composite_tiles_fwd", err)
-    composite_tiles_fwd.launches += 1
+    _build.count_launch(composite_tiles_fwd)
     return acc, final_t
 
 
@@ -422,7 +422,7 @@ def composite_tiles_bwd(
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check("composite_tiles_bwd", err)
-    composite_tiles_bwd.launches += 1
+    _build.count_launch(composite_tiles_bwd)
     return gout
 
 

@@ -107,7 +107,7 @@ def segment_broadcast(
             length, torch.cuda.current_stream(b.device).cuda_stream,
         )
     _build.check("segment_broadcast", err)
-    segment_broadcast.launches += 1
+    _build.count_launch(segment_broadcast)
     return list(out.unbind(0))
 
 
@@ -178,7 +178,7 @@ def segment_sum_sorted(vals_t: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(vals.device).cuda_stream,
         )
     _build.check("segment_sum_sorted", err)
-    segment_sum_sorted.launches += 1
+    _build.count_launch(segment_sum_sorted)
     return out
 
 

@@ -1,4 +1,5 @@
-"""Card probes: the counterparts of the Pallas probes under ``tools/``.
+"""Card probes: the counterparts of the Pallas probes under ``tools/``,
+and the port of ``tools/make_mono_depth.py``.
 
 * :mod:`gstk_torch.tools.ablate_fwd` (P1) times clones of the compositing
   forward K1 with one part removed each (``csrc/ablate_fwd.cu``);
@@ -10,6 +11,10 @@ Each is an entry point (``python -m gstk_torch.tools.<name> [--device
 cpu]``) whose wrappers launch their kernel on CUDA tensors and run their
 plain twin on CPU tensors. :func:`kernel_device_ms` is the device timing
 they and ``chip_smoke.py`` share.
+
+:mod:`gstk_torch.tools.make_mono_depth` writes the mono-depth variant of a
+raytraced dataset (host numpy; ``python -m gstk_torch.tools.make_mono_depth
+--data <dir> --out <dir>``).
 """
 
 from __future__ import annotations

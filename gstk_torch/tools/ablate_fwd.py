@@ -264,7 +264,7 @@ def run_variant(variant: str, records, gids, tile_bins, tiles_x: int,
                  final_t.data_ptr(),
                  torch.cuda.current_stream(device).cuda_stream)
     _build.check(f"run_variant({variant!r})", err)
-    run_variant.launches += 1
+    _build.count_launch(run_variant)
     return acc, final_t
 
 

@@ -128,7 +128,7 @@ def local_perm(table, perm, R: int, group: int) -> torch.Tensor:
     if table.device.type == "cpu":
         return local_perm_plain(table, perm, R, group)
     out = _launch("local_perm", "gstk_local_perm", table, perm, R, group)
-    local_perm.launches += 1
+    _build.count_launch(local_perm)
     return out
 
 
@@ -158,7 +158,7 @@ def dynwrite(table, dst, R: int, W: int) -> torch.Tensor:
     if table.device.type == "cpu":
         return dynwrite_plain(table, dst, R, W)
     out = _launch("dynwrite", "gstk_dynwrite", table, dst, R, W)
-    dynwrite.launches += 1
+    _build.count_launch(dynwrite)
     return out
 
 

@@ -13,7 +13,9 @@ Responsibilities, as in gstk_tpu:
   * every ``refine_every`` steps run :func:`gstk_torch.train.strategy.refine`;
   * grow the Gaussian capacity, the intersection capacity and the raster
     bands between steps when the fetched counts cross gstk_tpu's thresholds;
-  * eval cadence, checkpoints, writer logging, host-clock profiler.
+  * eval cadence, checkpoints, writer logging, host-clock profiler;
+  * with ``vis="viewer"``, a live viewer (:func:`make_viewer`) started at
+    setup and given a snapshot of the scene at every log step.
 
 Device values are fetched only every ``log_every`` steps (and at evals and
 saves), so the loop adds no host sync to a step. Random numbers (random
@@ -21,8 +23,7 @@ backgrounds, split noise) come from one ``torch.Generator`` on the device,
 seeded ``seed + 1``, in place of gstk_tpu's PRNG key.
 
 Not ported yet, and refused at ``setup``: Gaussian sharding, multi-host
-runs and data parallelism over more than one visible device (M15), the
-viewer (M16).
+runs and data parallelism over more than one visible device (M15).
 gstk_tpu's persistent compile cache has no counterpart in eager PyTorch.
 """
 
@@ -115,7 +116,7 @@ class TrainerConfig:
     device_data_cache_mb: int = 4096
     load_dir: Optional[Path] = None
     enable_tensorboard: bool = False
-    vis: str = "none"  # none | viewer (M16)
+    vis: str = "none"  # none | viewer
     viewer_port: int = 7007
     # data parallelism over cameras: "auto" uses every visible device when
     # there is more than one (M15); "off" forces one device
@@ -315,8 +316,8 @@ class Trainer:
                 f"data parallelism over {visible} visible devices is not "
                 "ported yet (M15); pass --data-parallel off or show one device"
             )
-        if cfg.vis != "none":
-            raise NotImplementedError(f"vis={cfg.vis!r}: the viewer is M16")
+        if cfg.vis not in ("none", "viewer"):
+            raise ValueError(f"vis={cfg.vis!r}: none or viewer")
 
     def setup(self) -> None:
         cfg = self.config
@@ -382,6 +383,20 @@ class Trainer:
                         ),
                     )
                 print(f"Resumed from {path} (raster: {self.raster_cfg})")
+        self.viewer = None
+        if cfg.vis == "viewer":
+            from gstk_torch.viewer.viser_viewer import make_viewer
+
+            # renders as the evals do; the caller stops it (viewer.stop())
+            self.viewer = make_viewer(
+                cfg.model,
+                dataclasses.replace(self.raster_cfg, forward_only=True),
+                port=cfg.viewer_port, device=self.device,
+                run_info={
+                    "config_path": str(self.run_dir / "config.yml"),
+                    "export_dir": str(self.run_dir / "exports"),
+                },
+            ).start()
 
     # -- device-resident training set --------------------------------------
     def _device_train_cache(self, d: int):
@@ -631,6 +646,8 @@ class Trainer:
                 self.writer.put_scalar(EventName.ITER_TRAIN_TIME, dt, step)
                 self.writer.write_out_storage()
                 self._maybe_grow(self._drain_isect_window(metrics_host))
+                if self.viewer is not None:
+                    self.viewer.update_scene(self.state.scene, metrics_host)
 
             if cfg.steps_per_save > 0 and (step + 1) % cfg.steps_per_save == 0:
                 with timer("save_checkpoint"):

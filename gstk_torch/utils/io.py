@@ -333,8 +333,10 @@ def read_png(path) -> np.ndarray:
                        else (height, width, channels))
 
 
-def write_png(path, image: np.ndarray) -> None:
-    """Write a uint8 or uint16 image, (H, W) or (H, W, 1|2|3|4), as PNG."""
+def encode_png(image: np.ndarray, level: int = -1) -> bytes:
+    """The PNG file of a uint8 or uint16 image, (H, W) or (H, W, 1|2|3|4),
+    filter 0 on every row, compressed by zlib at ``level`` (-1: zlib's
+    default)."""
     arr = np.asarray(image)
     depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}.get(arr.dtype)
     if depth is None:
@@ -353,12 +355,18 @@ def write_png(path, image: np.ndarray) -> None:
         return (struct.pack(">I", len(payload)) + tag + payload
                 + struct.pack(">I", zlib.crc32(tag + payload)))
 
+    return (_PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """Write a uint8 or uint16 image, (H, W) or (H, W, 1|2|3|4), as PNG."""
+    data = encode_png(image)
     with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
-                                             0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-                + chunk(b"IEND", b""))
+        f.write(data)
 
 
 def image_size(path) -> Tuple[int, int]:

@@ -31,6 +31,13 @@ cutoff); the crop mask, LPIPS (rtol 1e-4) and TSDF integration (atol 1e-5
 on all but 0.1% of voxels, weights equal outside them) against the CPU;
 SSIM and LPIPS unchanged with cuDNN's TF32 switched on globally; and a
 depth PNG of a far scene clamped at 65535 mm.
+
+The data and the viewer on the card: two raytraced views (128x128,
+supersample 3) against the CPU's (RGBA and depth equal in >= 99.9% of
+pixels, alpha equal, depth within 1 mm, seed points within 1e-9); a
+``TrainingViewer`` frame at 640x480, rgb and depth, through K1 and K3
+against the plain twins (uint8 within 1 level on all but 0.1% of pixels);
+and the launch counters of K1 and K3 exact while two threads render.
 """
 
 import numpy as np
@@ -683,3 +690,113 @@ def test_depth_png_clamped_on_a_far_render(cuda, tmp_path):
     mm = (1000.0 * depth).astype(np.uint32)
     assert got.dtype == np.uint16 and (mm > 65535).mean() > 0.1
     np.testing.assert_array_equal(got, np.minimum(mm, 65535))
+
+
+def test_raytraced_view_on_the_card_matches_cpu(cuda, tmp_path):
+    """Two raytraced views at 128x128, supersample 3, generated on the card
+    and on the CPU: RGBA equal in >= 99.9% of pixels, alpha equal, depth
+    equal in >= 99.9% and within 1 mm elsewhere, seed clouds within 1e-9."""
+    from gstk_torch.data.raytraced import generate_raytraced_dataset
+    from gstk_torch.utils.io import read_ply, read_png
+
+    dirs = {d: generate_raytraced_dataset(tmp_path / str(d), n_views=2,
+                                          img_wh=(128, 128), seed_points=500,
+                                          supersample=3, device=d)
+            for d in (cuda, "cpu")}
+    gpu, cpu = dirs[cuda], dirs["cpu"]
+    n_px = n_rgba = n_depth = 0
+    for i in range(2):
+        a = read_png(cpu / "images" / f"frame_{i:05d}.png")
+        b = read_png(gpu / "images" / f"frame_{i:05d}.png")
+        np.testing.assert_array_equal(b[..., 3], a[..., 3])
+        da = read_png(cpu / "depths" / f"depth_{i:05d}.png").astype(np.int64)
+        db = read_png(gpu / "depths" / f"depth_{i:05d}.png").astype(np.int64)
+        assert np.abs(db - da).max() <= 1
+        n_px += 128 * 128
+        n_rgba += int((a == b).all(-1).sum())
+        n_depth += int((da == db).sum())
+    assert n_rgba >= 0.999 * n_px and n_depth >= 0.999 * n_px
+    pa, pb = read_ply(cpu / "sparse.ply")["vertex"], read_ply(gpu / "sparse.ply")["vertex"]
+    assert len(pa) == len(pb) == 500
+    for k in "xyz":
+        np.testing.assert_allclose(pb[k], pa[k], rtol=0, atol=1e-9)
+
+
+def _viewer_pair(cuda):
+    """(a TrainingViewer through the kernels, one through the plain twins),
+    both on the card, given one scene in front of the orbit camera."""
+    from gstk_torch.models.vanilla import VanillaConfig
+    from gstk_torch.ops.rasterize import RasterizeConfig
+    from gstk_torch.viewer.http_viewer import TrainingViewer
+
+    scene = scene_from_numpy(_scene(np.random.default_rng(5), n=20000), cuda)
+    viewers = []
+    for backend in ("auto", "plain"):
+        v = TrainingViewer(VanillaConfig(sh_degree=1),
+                           RasterizeConfig(forward_only=True, backend=backend,
+                                           isect_capacity=1 << 20),
+                           host="127.0.0.1", port=0, device=cuda)
+        v.update_scene(scene)
+        viewers.append(v)
+    return viewers
+
+
+def test_training_viewer_frame_matches_plain_twins(cuda):
+    """A 640x480 frame, rgb and depth, through K1 and K3 against the plain
+    twins: uint8 within 1 level on all but 0.1% of pixels; one K1 and one
+    K3 launch a frame."""
+    from gstk_torch.viewer.http_viewer import DEFAULT_SETTINGS, orbit_pose
+
+    kernel, plain = _viewer_pair(cuda)
+    try:
+        c2w = orbit_pose(0.1, 0.05, 5.0, (0.0, 0.0, -5.0))
+        for output in ("rgb", "depth"):
+            settings = {**DEFAULT_SETTINGS, "output": output}
+            before = (composite_tiles_fwd.launches, segment_broadcast.launches)
+            got = kernel.render(c2w, 480, 640, settings)
+            assert (composite_tiles_fwd.launches - before[0],
+                    segment_broadcast.launches - before[1]) == (1, 1)
+            want = plain.render(c2w, 480, 640, settings)
+            diff = np.abs(got.astype(int) - want.astype(int)).max(-1)
+            assert (diff > 1).mean() <= 1e-3, (output, int((diff > 1).sum()))
+            assert len(np.unique(got)) > 16
+    finally:
+        kernel.stop()
+        plain.stop()
+
+
+def test_launch_counters_under_two_threads(cuda):
+    """Two threads render 16 frames each through the kernels at once: K1
+    and K3 count 32 launches each, none lost."""
+    import threading
+
+    from gstk_torch.viewer.http_viewer import DEFAULT_SETTINGS, orbit_pose
+
+    kernel, plain = _viewer_pair(cuda)
+    plain.stop()
+    frames, errors = [], []
+
+    def work(k):
+        try:
+            for i in range(16):
+                c2w = orbit_pose(0.05 * i + k, 0.05, 5.0, (0.0, 0.0, -5.0))
+                frames.append(kernel.render(c2w, 240, 320, DEFAULT_SETTINGS))
+        except Exception as exc:  # reported by the test thread below
+            errors.append(repr(exc))
+
+    try:
+        kernel.render(orbit_pose(0.0, 0.05, 5.0, (0.0, 0.0, -5.0)), 240, 320,
+                      DEFAULT_SETTINGS)  # builds the kernels first
+        torch.cuda.synchronize()
+        before = (composite_tiles_fwd.launches, segment_broadcast.launches)
+        threads = [threading.Thread(target=work, args=(k,)) for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        assert (composite_tiles_fwd.launches - before[0],
+                segment_broadcast.launches - before[1]) == (32, 32)
+        assert len(frames) == 32 and all(f.max() > 0 for f in frames)
+    finally:
+        kernel.stop()
