@@ -1,6 +1,6 @@
 """Drive gstk_torch's render, train, eval and export paths, its three
-methods, the raytraced data, mono co-gs and the live viewer on one CUDA
-card and check them.
+methods, the raytraced data, mono co-gs, the live viewer, data processing
+and the parallel paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -158,13 +158,53 @@ line:
      first snapshot, and K1 and K3 of the viewer's run equal the other
      run's plus one a frame rendered from a snapshot (K2, K4 equal);
      Pillow, OpenCV and PyYAML stay unimported;
+  16. data processing: (a) 15(a)'s 24 views, renamed ``frame_00001.png``...
+     so that the pipeline's rename is the identity, with a COLMAP text
+     model written here (PINHOLE, the known poses, the 96,000 seed points,
+     up to 400 unoccluded observations a view) and 15(b)'s mono estimates
+     go through ``python -m gstk_torch.scripts.process_data images
+     --skip-colmap --num-downscales 3 --mono-depth-data`` in a fresh
+     process: every frame gets a scale and shift, ``images_2/4/8`` lie
+     within 0.5 of the block mean, ``colmap/point_cloud.ply`` holds the
+     seed cloud, and each frame's scale is held against a dense fit of
+     its estimate to the true depth (median within 2%); gs-train then
+     runs 200 steps on the processed set with the counters reset just
+     before (K1-K4 launch, losses finite, ``ITER_TRAIN_TIME``);
+     ``estimate_depths`` with a torch model registered on the card, and
+     the CLI with ``--using-est-depth --depth-method gradient
+     --allow-toy-depth`` (never ``auto``, which would try the network);
+     (b) 8 pinhole views at 960x720 out of a 2048x4096 equirect capture,
+     timed; Pillow, OpenCV, PyYAML and transformers stay unimported;
+  17. parallelism: (a) gs-train with ``--coordinator-address
+     127.0.0.1:<free port> --num-processes 1 --process-id 0`` (a one-rank
+     NCCL group) for 100 steps on phase 11's dataset, counters reset just
+     before, ``ITER_TRAIN_TIME`` beside phase 11's; a DP step over that
+     group from phase 11's trained state equals the plain step bit for bit;
+     (b) two gloo ranks on the card (``chip_smoke.py --rank r 2 <dir>``,
+     spawned, joined within 420 s, killed after): the DP step at
+     bench.py's train point (rank r at pose(r)) against one Adam step on
+     the mean of the two one-camera gradients computed here (visibility
+     counts exactly; moments, parameter updates, grad norms, max_2dsize
+     and loss with phase 10's tolerances), both ranks' states equal; the
+     tile-sharded render of a 1920x1080 frame of
+     phase 11's scene against the one-rank render (phase 6's tolerances;
+     K1 and K3 on each rank); the Gaussian-sharded render and train step
+     from phase 11's trained state (2^19 lanes) bit-equal to the
+     replicated ones (an op off by rounding at the shard's row count would
+     be named and held to phase 10's tolerances), and one refine of the
+     gathered state equal to the replicated refine; each rank's device
+     peak, sharded and replicated, and the ms of the collectives;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
-bounds, phase 14's launches under ``launches_methods`` and phase 15's
-under ``launches_data_viewer``; P1-P3:
+bounds, phase 14's launches under ``launches_methods``, phase 15's
+under ``launches_data_viewer``, phase 16's under
+``launches_process_data`` and phase 17's under ``launches_parallel``, per
+rank and path; P1-P3:
 launches in phase 12's run of the probes; phase 11's numbers under
 ``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
 view and a frame included, under ``backend``, phase 14's under
-``methods``, phase 15's under ``data_viewer``), the card's name and power limit, and the last line ``{"ok":
+``methods``, phase 15's under ``data_viewer``, phase 16's under
+``process_data``, phase 17's under ``parallel``), the card's name and
+power limit, and the last line ``{"ok":
 true, "device": {...}}``.
 Kernel times are torch.profiler's device time; a kernel it records no
 launch of after three sessions fails the run.
@@ -178,6 +218,8 @@ import importlib
 import json
 import math
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -186,10 +228,12 @@ import threading
 import time
 import urllib.request
 import zlib
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gstk_torch import _build
 from gstk_torch.core.cameras import Camera
@@ -197,6 +241,7 @@ from gstk_torch.core.gaussians import init_scene, scene_from_numpy, scene_to_num
 from gstk_torch.models.vanilla import (
     VanillaConfig,
     composite_gt_with_background,
+    render_scene,
     rgb_loss,
     splat_inputs,
 )
@@ -212,7 +257,7 @@ from gstk_torch.ops.raster_cuda import (
     pack_records,
     resident_ctas,
 )
-from gstk_torch.ops.rasterize import RasterizeConfig, _tiles_to_image
+from gstk_torch.ops.rasterize import RasterizeConfig, _tiles_to_image, rasterize
 from gstk_torch.ops.segment_kernel import (
     segment_broadcast,
     segment_broadcast_plain,
@@ -234,26 +279,48 @@ from gstk_torch.data.raytraced import (
 )
 from gstk_torch.data.synthetic import ISECT_CAPACITY, generate_synthetic_dataset
 from gstk_torch.exporter.poisson import poisson_indicator
+from gstk_torch.parallel.gaussian_sharding import (
+    gather_train_state,
+    make_gauss_mesh,
+    render_scene_gauss_sharded,
+    shard_train_state,
+)
+from gstk_torch.parallel.mesh import DATA_AXIS, get_mesh
+from gstk_torch.parallel.tile_sharding import make_tile_mesh, rasterize_tile_sharded
+from gstk_torch.process_data.equirect import (
+    generate_planar_projections_from_equirectangular,
+)
+from gstk_torch.process_data.mono_depth import estimate_depths, register_depth_model
 from gstk_torch.exporter.tsdf import integrate_frames, make_volume, marching_tetrahedra
 from gstk_torch.render.renderer import Renderer
 from gstk_torch.scripts import eval as eval_cli
 from gstk_torch.scripts import export as export_cli
 from gstk_torch.scripts import render as render_cli
+from gstk_torch.scripts.process_data import main as process_data_main
 from gstk_torch.scripts.train import main as train_main
 from gstk_torch.tools import ablate_fwd, bench_dynrow, kernel_device_ms, make_mono_depth
 from gstk_torch.train.checkpoint import (
+    latest_checkpoint,
+    peek_meta,
     save_scene,
     train_state_from_numpy,
     train_state_to_numpy,
 )
-from gstk_torch.train.optim import OptimizerConfig
+from gstk_torch.train.optim import OptimizerConfig, adam_step
 from gstk_torch.train.step import init_train_state, make_train_step
 from gstk_torch.train.strategy import refine
 from gstk_torch.train import trainer as trainer_mod
 from gstk_torch.train.trainer import Trainer, area_downscale, train_cache_bytes
 from gstk_torch.utils.colors import EVAL_BACKGROUND
 from gstk_torch.utils import losses
-from gstk_torch.utils.io import encode_png, read_ply, read_png, read_ply_points, write_ply
+from gstk_torch.utils.io import (
+    encode_png,
+    read_ply,
+    read_ply_points,
+    read_png,
+    write_ply,
+    write_png,
+)
 from gstk_torch.utils.lpips import lpips, random_lpips_params
 from gstk_torch.utils.profiler import PROFILER
 from gstk_torch.viewer import http_viewer
@@ -320,6 +387,13 @@ MONO_MAX_ERR = 0.02  # the mono tool's own refusal threshold
 VIEWER_REQUESTS, VIEWER_W, VIEWER_H, VIEWER_EL, VIEWER_CROP = 10, 640, 480, 0.35, 0.3
 VIEWER_DEADLINE_S = 180  # gs-viewer must print its port and load the scene by then
 VIEWER_ITERS, POLL_S = 200, 0.05  # 15(d): steps a run; the client's poll period
+# phase 16: observations a view in the COLMAP model; gs-train's steps on
+# the processed set; the equirect capture and its views
+PD_OBS, PD_ITERS = 400, 200
+EQ_H, EQ_W, EQ_VIEWS = 2048, 4096, 8
+# phase 17: gs-train's steps over a one-rank NCCL group; the two gloo
+# ranks' deadline; the 1080p frame's single-band intersection buffer
+PAR_ITERS, RANK_DEADLINE_S, TILE_ISECT = 100, 420, 1 << 22
 REPO = Path(__file__).resolve().parent
 
 
@@ -398,6 +472,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 17(b)
+        return rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     with tempfile.TemporaryDirectory(prefix="gstk_torch_smoke_") as ckpt_dir:
         return run(ckpt_dir)
 
@@ -782,6 +858,8 @@ def run(ckpt_dir: str) -> int:
     backend_numbers = backend_phase(Path(ckpt_dir), trainer_numbers)
     method_numbers = methods_phase(Path(ckpt_dir), counters)
     data_numbers = data_viewer_phase(Path(ckpt_dir), counters)
+    process_numbers = process_data_phase(Path(ckpt_dir), counters)
+    parallel_numbers = parallel_phase(Path(ckpt_dir), counters, trainer_numbers)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -820,6 +898,12 @@ def run(ckpt_dir: str) -> int:
             run: n[name] for run, n in method_numbers["launches"].items()}
         entry["launches_data_viewer"] = {
             run: n[name] for run, n in data_numbers["launches"].items()}
+        entry["launches_process_data"] = {
+            run: n[name] for run, n in process_numbers["launches"].items()}
+        entry["launches_parallel"] = {
+            "nccl_world1_run": parallel_numbers["launches"]["nccl_world1_run"][name],
+            "ranks": [{path: n[name] for path, n in rank.items()}
+                      for rank in parallel_numbers["launches"]["ranks"]]}
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
@@ -838,6 +922,8 @@ def run(ckpt_dir: str) -> int:
                       "backend": backend_numbers,
                       "methods": method_numbers,
                       "data_viewer": data_numbers,
+                      "process_data": process_numbers,
+                      "parallel": parallel_numbers,
                       "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2492,6 +2578,593 @@ def compare_steps(metrics, metrics_p, before, got, want, optim_cfg, step=0):
         outside(k, got[f".refine/.{k}"], want[f".refine/.{k}"], 1e-6, 0.0)
     print(f"kernel step vs plain step: loss {float(metrics['loss']):.6f} vs "
           f"{float(metrics_p['loss']):.6f}; entries outside tolerance {worst}")
+
+
+def _copy_renumbered(src: Path, dst: Path, prefix: str) -> list:
+    """Copy ``src``'s ``<prefix>_NNNNN.png`` to ``dst`` as ``<prefix>_{N+1}``:
+    gs-process-data numbers frames from 1."""
+    dst.mkdir(parents=True, exist_ok=True)
+    names = []
+    for p in sorted(src.glob(f"{prefix}_*.png")):
+        name = f"{prefix}_{int(p.stem.split('_')[1]) + 1:05d}.png"
+        shutil.copy(p, dst / name)
+        names.append(name)
+    return names
+
+
+def _quat(r: np.ndarray) -> np.ndarray:
+    """wxyz quaternion of a rotation matrix (Shepperd's branches)."""
+    tr = np.trace(r)
+    if tr > 0:
+        s = 2 * np.sqrt(1 + tr)
+        return np.array([s / 4, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+                         (r[1, 0] - r[0, 1]) / s])
+    a = int(np.argmax(np.diag(r)))
+    b, c = (a + 1) % 3, (a + 2) % 3
+    s = 2 * np.sqrt(1 + r[a, a] - r[b, b] - r[c, c])
+    q = np.zeros(4)
+    q[0] = (r[c, b] - r[b, c]) / s
+    q[1 + a] = s / 4
+    q[1 + b] = (r[b, a] + r[a, b]) / s
+    q[1 + c] = (r[c, a] + r[a, c]) / s
+    return q
+
+
+def write_colmap_text(data: Path, model: Path, names: list) -> int:
+    """A COLMAP text model of the raytraced views: one PINHOLE camera, each
+    view's known pose (OpenGL c2w -> COLMAP w2c), the seed cloud as the
+    points, and as each view's observations up to ``PD_OBS`` seed points
+    that it sees unoccluded (their depth within 2% of the view's GT depth
+    at that pixel). Returns the point count."""
+    meta = json.loads((data / "transforms.json").read_text())
+    fx, fy, cx, cy = meta["fl_x"], meta["fl_y"], meta["cx"], meta["cy"]
+    w, h = meta["w"], meta["h"]
+    pts, rgb = read_ply_points(data / "sparse.ply")
+    pts = pts.astype(np.float64)
+    rng = np.random.default_rng(SEED)
+    tracks = [[] for _ in range(len(pts))]
+    lines = []
+    flip = np.diag([1.0, -1.0, -1.0])
+    for i, (fr, name) in enumerate(zip(meta["frames"], names)):
+        c2w = np.asarray(fr["transform_matrix"], np.float64)
+        r_w2c = c2w[:3, :3].T
+        t_w2c = -r_w2c @ c2w[:3, 3]
+        r_cv, t_cv = flip @ r_w2c, flip @ t_w2c
+        pc = pts @ r_cv.T + t_cv
+        z = pc[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = fx * pc[:, 0] / z + cx
+            v = fy * pc[:, 1] / z + cy
+        vis = (z > 0.05) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        gt_z = read_png(data / fr["depth_path"]).astype(np.float64) * 1e-3
+        ui = np.clip(np.nan_to_num(u).astype(int), 0, w - 1)
+        vi = np.clip(np.nan_to_num(v).astype(int), 0, h - 1)
+        zi = gt_z[vi, ui]
+        vis &= (zi > 0) & (np.abs(z - zi) < 0.02 * np.maximum(z, 1e-6))
+        idx = np.flatnonzero(vis)
+        idx = np.sort(rng.choice(idx, min(PD_OBS, idx.size), replace=False))
+        q = _quat(r_cv)
+        lines.append(f"{i + 1} {' '.join(repr(float(x)) for x in q)} "
+                     f"{' '.join(repr(float(x)) for x in t_cv)} 1 {name}")
+        lines.append(" ".join(f"{float(u[j])!r} {float(v[j])!r} {j + 1}"
+                              for j in idx))
+        for k, j in enumerate(idx):
+            tracks[j].append(f"{i + 1} {k}")
+    model.mkdir(parents=True, exist_ok=True)
+    (model / "cameras.txt").write_text(f"1 PINHOLE {w} {h} {fx!r} {fy!r} "
+                                       f"{cx!r} {cy!r}\n")
+    (model / "images.txt").write_text("\n".join(lines) + "\n")
+    with open(model / "points3D.txt", "w") as f:
+        for j, (p, c) in enumerate(zip(pts, rgb.astype(int))):
+            xyz = " ".join(repr(float(x)) for x in p)
+            f.write(f"{j + 1} {xyz} {c[0]} {c[1]} {c[2]} 0.5 "
+                    f"{' '.join(tracks[j])}\n")
+    return len(pts)
+
+
+def process_data_phase(work_dir: Path, counters) -> dict:
+    """Phase 16: gs-process-data on phase 15's raytraced views and mono
+    estimates, gs-train on its output, the depth estimators and the
+    equirect extraction; the counters reset just before the training run
+    and read just after."""
+    phase("16 data processing: gs-process-data, gs-train on its output, "
+          "depth estimation, equirect views")
+    t0 = time.perf_counter()
+    data = work_dir / "raytraced"
+    raw = work_dir / "pd_raw"
+    names = _copy_renumbered(data / "images", raw, "frame")
+    mono = work_dir / "pd_mono"
+    _copy_renumbered(work_dir / "raytraced_mono" / "depths_mono", mono, "depth")
+    out = work_dir / "processed"
+    n_pts = write_colmap_text(data, out / "colmap" / "sparse" / "0", names)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gstk_torch.scripts.process_data", "images",
+         "--data", str(raw), "--output-dir", str(out), "--skip-colmap",
+         "--num-downscales", "3", "--mono-depth-data", str(mono)],
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    cli_s = time.perf_counter() - t1
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    print(proc.stdout.strip().splitlines()[-1])
+    meta = json.loads((out / "transforms.json").read_text())
+    assert len(meta["frames"]) == RT_VIEWS
+    assert all("scale" in f and "shift" in f for f in meta["frames"])
+    assert len(read_ply_points(out / "colmap" / "point_cloud.ply")[0]) == n_pts
+    worst = 0.0
+    for name in names:
+        img = read_png(out / "images" / name).astype(np.float64)
+        for d in (2, 4, 8):
+            small = read_png(out / f"images_{d}" / name)
+            hh, ww = img.shape[0] // d, img.shape[1] // d
+            mean = img[:hh * d, :ww * d].reshape(hh, d, ww, d, -1).mean((1, 3))
+            assert small.shape == mean.shape, (name, d)
+            worst = max(worst, float(np.abs(small - mean).max()))
+    assert worst <= 0.5, f"a pyramid level is off the box mean by {worst}"
+    # the pipeline's per-frame mono scale against a dense fit of each
+    # estimate to the view's true depth: est = m z + c, scale = m / 255,
+    # over the pixels where neither PNG saturates (far ground: 65535)
+    rel = []
+    for fr in meta["frames"]:
+        i = int(Path(fr["file_path"]).stem.split("_")[1]) - 1
+        z = read_png(data / "depths" / f"depth_{i:05d}.png").astype(np.float64)
+        est = read_png(work_dir / "raytraced_mono" / "depths_mono"
+                       / f"depth_{i:05d}.png").astype(np.float64)
+        ok = (z > 0) & (z < 65535) & (est < 65535)
+        m, _ = np.polyfit(z[ok] * 1e-3, est[ok], 1)
+        rel.append(abs(fr["scale"] - m / 255.0) / (m / 255.0))
+    recovery = {"median": float(np.median(rel)), "max": float(np.max(rel))}
+    print(f"gs-process-data ({cli_s:.1f} s, a fresh process): {RT_VIEWS} views, "
+          f"{n_pts} seed points, pyramids within {worst} of the box mean; mono "
+          f"scale against the dense fit to the true depth: median rel error "
+          f"{recovery['median']:.4%}, max {recovery['max']:.4%}")
+    assert recovery["median"] <= MONO_MAX_ERR, recovery
+
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    for f in counters:
+        f.launches = 0
+    t1 = time.perf_counter()
+    trainer = train_main([
+        "--device", DEVICE, "gaussian-splatting", "--data", str(out),
+        "--output-dir", str(work_dir / "pd_runs"),
+        "--max-num-iterations", str(PD_ITERS), "--steps-per-eval-image", "0",
+        "--steps-per-eval-all-images", str(PD_ITERS),
+        "--steps-per-save", str(PD_ITERS), "--model.num-downscales", "0",
+        "--dataparser.eval-mode", "interval", "--dataparser.eval-interval", "8",
+    ])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = launches_of(counters)
+    for name, n in launches.items():
+        assert n >= 1, f"{name} not launched by gs-train on gs-process-data's output"
+    rows = [json.loads(line) for line in
+            (trainer.config.run_dir / "metrics.jsonl").open()]
+    col = lambda key: [(r["step"], r[key]) for r in rows if key in r]
+    assert all(math.isfinite(v) for _, v in col("loss")), "loss not finite"
+    iter_ms = [v * 1e3 for _, v in col("Train Iter (time)")][1:]
+    final_eval = col("eval_psnr")[-1][1]
+    print(f"gs-train on the processed set: {PD_ITERS} steps in {run_s:.1f} s, "
+          f"ITER_TRAIN_TIME median {statistics.median(iter_ms):.3f} ms, final "
+          f"eval PSNR {final_eval:.3f}, launches {launches}")
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+
+    # the depth estimators: a registered torch model on the card, and the
+    # placeholder through the CLI (never "auto": it would try the network)
+    def card_depth(images):
+        outs = []
+        kernel = torch.full((1, 1, 9, 9), 1.0 / 81, device=DEVICE)
+        for img in images:
+            t = torch.from_numpy(img).to(DEVICE).float().mean(-1)[None, None]
+            outs.append((1.0 + torch.nn.functional.conv2d(
+                t, kernel, padding=4))[0, 0].cpu().numpy())
+        return outs
+
+    register_depth_model("card_blur", card_depth)
+    est_s = synchronized_s(lambda: estimate_depths(
+        out / "images", work_dir / "pd_est", method="card_blur"))
+    est = sorted((work_dir / "pd_est").glob("depth_*.png"))
+    assert len(est) == RT_VIEWS and read_png(est[0]).dtype == np.uint16
+    toy = work_dir / "processed_toy"
+    shutil.copytree(out / "colmap" / "sparse", toy / "colmap" / "sparse")
+    t1 = time.perf_counter()
+    process_data_main(["images", "--data", str(raw), "--output-dir", str(toy),
+                       "--skip-colmap", "--num-downscales", "0",
+                       "--using-est-depth", "--depth-method", "gradient",
+                       "--allow-toy-depth"])
+    toy_s = time.perf_counter() - t1
+    toy_meta = json.loads((toy / "transforms.json").read_text())
+    assert all("scale" in f for f in toy_meta["frames"])
+    print(f"estimate_depths with a torch model on the card: {RT_VIEWS} views "
+          f"in {est_s:.2f} s; gs-process-data --using-est-depth "
+          f"--depth-method gradient --allow-toy-depth in process: {toy_s:.1f} s")
+
+    # (b) 8 pinhole views out of a 2048x4096 equirect capture
+    pano = work_dir / "pano"
+    pano.mkdir()
+    yy, xx = np.mgrid[0:EQ_H, 0:EQ_W]
+    rng = np.random.default_rng(SEED)
+    img = np.stack([128 + 100 * np.sin(xx / 37.0 + c) * np.cos(yy / 23.0 - c)
+                    for c in range(3)], -1) + rng.normal(0, 8, (EQ_H, EQ_W, 3))
+    write_png(pano / "pano.png", np.clip(img, 0, 255).astype(np.uint8))
+    t1 = time.perf_counter()
+    views = generate_planar_projections_from_equirectangular(
+        pano, work_dir / "pano_views", samples_per_image=EQ_VIEWS)
+    eq_s = (time.perf_counter() - t1) / EQ_VIEWS
+    assert len(views) == EQ_VIEWS and read_png(views[0]).shape == (720, 960, 3)
+    print(f"equirect {EQ_W}x{EQ_H} -> {EQ_VIEWS} views at 960x720: {eq_s:.3f} s "
+          f"a view (host numpy, PNG written)")
+    loaded = [m for m in ("PIL", "cv2", "yaml", "transformers")
+              if m in sys.modules]
+    assert not loaded, f"phase 16 imported {loaded}"
+    wall_s = time.perf_counter() - t0
+    print(f"phase 16 wall time {wall_s:.1f} s")
+    return {"launches": {"gs_train_on_processed": launches},
+            "cli_s": cli_s, "seed_points": n_pts, "pyramid_max_off": worst,
+            "mono_scale_rel_error": recovery, "train_run_s": run_s,
+            "step_ms_median": statistics.median(iter_ms),
+            "final_eval_psnr": final_eval, "estimate_depths_s": est_s,
+            "toy_depth_cli_s": toy_s, "equirect_s_per_view": eq_s,
+            "wall_s": wall_s}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _flat_copy(state) -> dict:
+    return {k: v.copy() for k, v in train_state_to_numpy(state).items()}
+
+
+def _mismatches(got: dict, want: dict) -> dict:
+    """Keys whose arrays differ, with the largest difference."""
+    return {k: float(np.abs(got[k].astype(np.float64) - v).max())
+            for k, v in want.items() if not np.array_equal(got[k], v)}
+
+
+def parallel_phase(work_dir: Path, counters, trained: dict) -> dict:
+    """Phase 17: (a) gs-train from a one-rank NCCL group, a data-parallel
+    step over it against the plain step; (b) two gloo ranks on the card:
+    the DP step, the tile-sharded render, the Gaussian-sharded render, step
+    and refine, each against its one-process counterpart."""
+    phase("17 parallelism: NCCL at world size 1, two gloo ranks on the card")
+    t0 = time.perf_counter()
+    data = work_dir / "synthetic"
+    for f in counters:
+        f.launches = 0
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    trainer = train_main([
+        "--device", DEVICE, "gaussian-splatting", "--data", str(data),
+        "--output-dir", str(work_dir / "par_runs"),
+        "--max-num-iterations", str(PAR_ITERS), "--steps-per-eval-image", "0",
+        "--steps-per-eval-all-images", "0", "--steps-per-save", str(PAR_ITERS),
+        "--model.num-downscales", "0",
+        "--dataparser.eval-mode", "interval", "--dataparser.eval-interval", "8",
+        "--coordinator-address", f"127.0.0.1:{_free_port()}",
+        "--num-processes", "1", "--process-id", "0",
+    ])
+    torch.cuda.synchronize()
+    nccl_launches = launches_of(counters)
+    assert dist.is_initialized() and dist.get_backend() == (
+        "nccl" if DEVICE == "cuda" else "gloo")
+    assert trainer.world == 1 and all(n >= 1 for n in nccl_launches.values())
+    rows = [json.loads(line) for line in
+            (trainer.config.run_dir / "metrics.jsonl").open()]
+    iter_ms = [r["Train Iter (time)"] * 1e3 for r in rows
+               if "Train Iter (time)" in r][1:]
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    # one DP step over the one-rank group from phase 11's trained state
+    ckpt = latest_checkpoint(work_dir / "runs" / "synthetic"
+                             / "gaussian-splatting" / "ckpts")
+    with np.load(ckpt) as z:
+        flat = {k: z[k] for k in z.files}
+    meta = peek_meta(ckpt)
+    raster = RasterizeConfig(isect_capacity=int(meta["isect_capacity"]),
+                             bands=int(meta.get("bands", 1)))
+    model_cfg = trainer.config.model
+    frame = trainer.datamanager.train_frames[0]
+    camera = Camera.create(frame.fx, frame.fy, frame.cx, frame.cy, frame.c2w,
+                           device=DEVICE)
+    gt = torch.from_numpy(frame.image).to(DEVICE)
+    results = {}
+    for name, kw in (("plain", {}),
+                     ("dp", {"axis_name": DATA_AXIS, "mesh": get_mesh()})):
+        step = make_train_step(model_cfg, raster, OptimizerConfig(), H, W,
+                               sh_degree=SH_DEGREE, **kw)
+        state = train_state_from_numpy(flat, DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        state, m = step(state, camera, gt, gen)
+        torch.cuda.synchronize()
+        results[name] = (_flat_copy(state), {k: float(v) for k, v in m.items()})
+    bad = _mismatches(results["dp"][0], results["plain"][0])
+    assert not bad and results["dp"][1] == results["plain"][1], bad
+    dist.destroy_process_group()
+    print(f"17(a) gs-train over a one-rank NCCL group ({PAR_ITERS} steps): "
+          f"ITER_TRAIN_TIME median {statistics.median(iter_ms):.3f} ms (phase "
+          f"11: {trained['step_ms']['median']:.3f}); launches {nccl_launches}; "
+          f"a DP step from phase 11's state equals the plain step bit for bit")
+
+    # (b) two gloo ranks on the card, against one process here
+    io = work_dir / "ranks"
+    io.mkdir()
+    np.savez(io / "in.npz", ckpt=str(ckpt), c2w=frame.c2w,
+             intrinsics=np.array([frame.fx, frame.fy, frame.cx, frame.cy]))
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--rank", str(r), "2",
+         str(io)], cwd=REPO, stdout=open(io / f"rank_{r}.log", "w"),
+        stderr=subprocess.STDOUT) for r in range(2)]
+    deadline = time.monotonic() + RANK_DEADLINE_S
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    ranks_s = time.perf_counter() - t1
+    for r, p in enumerate(procs):
+        log = (io / f"rank_{r}.log").read_text()
+        assert p.returncode == 0, f"rank {r} rc {p.returncode}:\n{log[-4000:]}"
+    outs = [dict(np.load(io / f"out_{r}.npz")) for r in range(2)]
+    reports = [json.loads(str(o["report"])) for o in outs]
+    for k in outs[0]:
+        if k.startswith("dp.") or k.startswith("gauss"):
+            assert np.array_equal(outs[0][k], outs[1][k]), f"ranks differ: {k}"
+    # the DP step against one Adam step on the mean of the two one-camera
+    # gradients here (each read back from its first moment, (1 - b1) g)
+    optim_cfg = OptimizerConfig()
+    state_fn = make_train_step(
+        VanillaConfig(sh_degree=SH_DEGREE, background_color="black"),
+        RasterizeConfig(isect_capacity=TRAIN_ISECT), optim_cfg, H, W,
+        sh_degree=SH_DEGREE)
+    gt8 = torch.rand((H, W, 3), device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    singles, single_metrics = [], []
+    for r in range(2):
+        cam = Camera.create(FOCAL, FOCAL, W / 2, H / 2, pose(r), device=DEVICE)
+        state, m = state_fn(init_train_state(bench_scene(DEVICE)), cam, gt8)
+        singles.append(_flat_copy(state))
+        single_metrics.append({k: float(v) for k, v in m.items()})
+    ref = init_train_state(bench_scene(DEVICE))
+    before = _flat_copy(ref)
+    mu = lambda s, g: s[f".adam/.mu/['{g}']"]
+    mean_grads = {g: torch.from_numpy(0.5 * (mu(singles[0], g) + mu(singles[1], g))
+                                      / (1.0 - optim_cfg.b1)).to(DEVICE)
+                  for g in ref.scene.params()}
+    ref.adam = adam_step(ref.scene.params(), mean_grads, ref.adam, ref.step,
+                         optim_cfg, update_mask=ref.scene.alive)
+    want = _flat_copy(ref)
+    want[".refine/.xys_grad_norm"] = (singles[0][".refine/.xys_grad_norm"]
+                                      + singles[1][".refine/.xys_grad_norm"])
+    want[".refine/.vis_counts"] = (singles[0][".refine/.vis_counts"]
+                                   + singles[1][".refine/.vis_counts"])
+    want[".refine/.max_2dsize"] = np.maximum(
+        singles[0][".refine/.max_2dsize"], singles[1][".refine/.max_2dsize"])
+    dp = {k[3:]: v for k, v in outs[0].items() if k.startswith("dp.")}
+    np.testing.assert_array_equal(dp[".refine/.vis_counts"],
+                                  want[".refine/.vis_counts"])
+    mean_metrics = {k: 0.5 * (single_metrics[0][k] + single_metrics[1][k])
+                    for k in ("loss", "main_loss", "psnr")}
+    compare_steps(reports[0]["dp_step_metrics"], mean_metrics, before, dp,
+                  want, optim_cfg)
+    named = reports[0]["gauss_step_mismatches"]
+    for r, rep in enumerate(reports):
+        got = rep["launches"]
+        for path in ("dp_step", "gauss_step"):
+            assert all(n >= 1 for n in got[path].values()), (r, path, got[path])
+        for path in ("tile_render", "gauss_render"):
+            assert got[path]["composite_tiles_fwd"] >= 1, (r, path)
+            assert got[path]["segment_broadcast"] >= 1, (r, path)
+        print(f"rank {r} ({rep['backend']}): DP step {rep['dp_step_ms_median']:.3f} "
+              f"ms (collectives {rep['dp_collectives_ms']}); 1080p tile-sharded "
+              f"{rep['tile_render_ms']:.3f} ms against one rank's "
+              f"{rep['single_render_ms']:.3f} ({rep['tile_intersections']} "
+              f"intersections, max abs err {rep['tile_max_abs_err']}); "
+              f"Gaussian-sharded step {rep['gauss_step_ms']:.3f} ms, peak "
+              f"{rep['gauss_step_peak_mib']:.1f} MiB against the replicated "
+              f"{rep['replicated_step_ms']:.3f} ms, "
+              f"{rep['replicated_step_peak_mib']:.1f} MiB (gathers "
+              f"{rep['gauss_collectives_ms']}); refine gather "
+              f"{rep['gauss_refine_gather_ms']:.3f} ms, peak "
+              f"{rep['gauss_refine_gather_peak_mib']:.1f} MiB; launches {got}")
+    wall_s = time.perf_counter() - t0
+    print(f"17(b) two gloo ranks on the card in {ranks_s:.1f} s: the DP step "
+          f"equals one Adam step on the mean of the one-camera gradients "
+          f"(moments, parameters, statistics); tile-sharded 1080p "
+          f"= the single render; the Gaussian-sharded render, step and refine "
+          f"= the replicated ones (ops off by rounding: {named or 'none'}); "
+          f"phase 17 wall time {wall_s:.1f} s")
+    return {"launches": {"nccl_world1_run": nccl_launches,
+                         "ranks": [rep["launches"] for rep in reports]},
+            "nccl_world1_step_ms_median": statistics.median(iter_ms),
+            "phase11_step_ms_median": trained["step_ms"]["median"],
+            "ranks": reports, "ranks_s": ranks_s, "wall_s": wall_s}
+
+
+def rank_main(rank: int, world: int, io: Path) -> int:
+    """One gloo rank of phase 17(b) on the card (``chip_smoke.py --rank r n
+    dir``): NCCL takes one rank a card, so the two ranks meet over gloo."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{io / 'store'}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=120))
+    counters = (composite_tiles_fwd, composite_tiles_bwd, segment_broadcast,
+                segment_sum_sorted)
+    with np.load(io / "in.npz") as z:
+        ckpt, c2w, (fx, fy, cx, cy) = Path(str(z["ckpt"])), z["c2w"], z["intrinsics"]
+    out, report, launches = {}, {}, {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        for f in counters:
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        report[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+        report[name + "_peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        launches[name] = launches_of(counters)
+        return result
+
+    # the DP step at bench.py's train point, this rank's camera pose(rank)
+    mesh = get_mesh()
+    data = mesh[DATA_AXIS]
+    model_cfg = VanillaConfig(sh_degree=SH_DEGREE, background_color="black")
+    train_raster = RasterizeConfig(isect_capacity=TRAIN_ISECT)
+    step = make_train_step(model_cfg, train_raster, OptimizerConfig(), H, W,
+                           sh_degree=SH_DEGREE, axis_name=DATA_AXIS, mesh=mesh)
+    gt8 = torch.rand((H, W, 3), device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    cam = Camera.create(FOCAL, FOCAL, W / 2, H / 2, pose(rank), device=DEVICE)
+    state = init_train_state(bench_scene(DEVICE))
+    state, m = counted("dp_step", lambda: step(state, cam, gt8))
+    report["dp_step_metrics"] = {k: float(m[k])
+                                 for k in ("loss", "main_loss", "psnr")}
+    out.update({"dp." + k: v for k, v in _flat_copy(state).items()})
+    steps_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, cam, gt8)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    report["dp_step_ms_median"] = statistics.median(steps_ms)
+    # the step's three collectives alone, at its sizes
+    n_grad = sum(v.numel() for v in state.scene.params().values())
+    bufs = (("f32 sum", torch.zeros(n_grad + CAPACITY + 8, device=DEVICE),
+             data.sum_),
+            ("i32 sum", torch.zeros(CAPACITY, dtype=torch.int32, device=DEVICE),
+             data.sum_),
+            ("i32 max", torch.zeros(CAPACITY + 1, dtype=torch.int32,
+                                    device=DEVICE), data.max_))
+    coll = {}
+    for name, buf, fn in bufs:
+        fn(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(buf)
+        torch.cuda.synchronize()
+        coll[name] = (time.perf_counter() - t0) * 1e3 / 5
+    report["dp_collectives_ms"] = coll
+    report["dp_collectives_ms_per_step"] = sum(coll.values())
+    del state
+
+    # the tile-sharded render of a 1920x1080 frame of phase 11's scene
+    with np.load(ckpt) as z:
+        flat = {k: z[k] for k in z.files}
+    meta = peek_meta(ckpt)
+    full = train_state_from_numpy(flat, DEVICE)
+    scene = full.scene
+    # a train view's pose at the trajectory's size, its vertical field kept
+    scale = TRAJ_H / H
+    tcam = Camera.create(fx * scale, fy * scale, TRAJ_W / 2, TRAJ_H / 2, c2w,
+                         device=DEVICE)
+    tile_raster = RasterizeConfig(isect_capacity=TILE_ISECT)
+    with torch.no_grad():
+        inputs = splat_inputs(scene, tcam, TRAJ_H, TRAJ_W,
+                              sh_degree=SH_DEGREE, config=VanillaConfig())
+        bg = torch.tensor(EVAL_BACKGROUND, device=DEVICE)
+        bg4 = torch.cat([bg, bg.new_zeros(1)])  # RGB and depth
+        img, alpha = counted("tile_render", lambda: rasterize_tile_sharded(
+            **inputs, img_height=TRAJ_H, img_width=TRAJ_W,
+            mesh=make_tile_mesh(), background=bg4, config=tile_raster))
+        ref, ref_alpha, info = rasterize(
+            **inputs, img_height=TRAJ_H, img_width=TRAJ_W, background=bg4,
+            config=tile_raster, return_info=True)
+    assert int(info["num_intersects"]) <= TILE_ISECT, "1080p frame truncated"
+    assert_close("tile-sharded rgb", img, ref, **PARITY, max_outside=0.001)
+    assert_close("tile-sharded alpha", alpha, ref_alpha, **PARITY,
+                 max_outside=0.001)
+    report["tile_max_abs_err"] = float((img - ref).abs().max())
+    report["tile_intersections"] = int(info["num_intersects"])
+    report["single_render_ms"] = synchronized_s(lambda: rasterize(
+        **inputs, img_height=TRAJ_H, img_width=TRAJ_W, background=bg4,
+        config=tile_raster)) * 1e3
+    del inputs, img, ref
+
+    # the Gaussian-sharded render, step and refine from phase 11's state
+    gmesh = make_gauss_mesh()
+    frame_cam = Camera.create(fx, fy, cx, cy, c2w, device=DEVICE)
+    raster = RasterizeConfig(isect_capacity=int(meta["isect_capacity"]))
+    cfg = VanillaConfig(sh_degree=SH_DEGREE)
+    kw = dict(sh_degree=SH_DEGREE, background=bg, config=cfg,
+              raster_config=raster)
+    sharded_state = shard_train_state(full, gmesh)
+    with torch.no_grad():
+        ref = render_scene(scene, frame_cam, H, W, **kw)
+        got = counted("gauss_render", lambda: render_scene_gauss_sharded(
+            sharded_state.scene, frame_cam, H, W, mesh=gmesh, **kw))
+    for k in ("rgb", "depth", "alpha"):
+        assert torch.equal(got[k], ref[k]), f"Gaussian-sharded {k} differs"
+    del got, ref
+    step_r = make_train_step(cfg, raster, OptimizerConfig(), H, W,
+                             sh_degree=SH_DEGREE)
+    step_s = make_train_step(cfg, raster, OptimizerConfig(), H, W,
+                             sh_degree=SH_DEGREE, mesh=gmesh)
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)
+    want, m_want = counted("replicated_step",
+                           lambda: step_r(full, frame_cam, gt8, gen()))
+    got, m_got = counted("gauss_step",
+                         lambda: step_s(sharded_state, frame_cam, gt8, gen()))
+    want_flat = _flat_copy(want)
+    got_full = gather_train_state(got, gmesh)
+    bad = _mismatches(_flat_copy(got_full), want_flat)
+    report["gauss_step_mismatches"] = bad
+    for k in bad:  # an op that rounds otherwise at the shard's row count
+        assert_close(f"Gaussian-sharded {k}",
+                     torch.from_numpy(_flat_copy(got_full)[k]),
+                     torch.from_numpy(want_flat[k]), RTOL_GRAD,
+                     1e-4 * float(np.abs(want_flat[k]).max()), MAX_OUTSIDE)
+    assert {k: float(v) for k, v in m_got.items()} == \
+        {k: float(v) for k, v in m_want.items()}
+    axis = gmesh["gauss"]
+    n_local = got.scene.capacity
+    coll = {}
+    for name, buf in (("f32 gather", torch.zeros((n_local, 11), device=DEVICE)),
+                      ("i32 gather", torch.zeros((n_local, 2), dtype=torch.int32,
+                                                 device=DEVICE))):
+        axis.all_gather(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            axis.all_gather(buf)
+        torch.cuda.synchronize()
+        coll[name] = (time.perf_counter() - t0) * 1e3 / 5
+    report["gauss_collectives_ms"] = coll
+    report["gauss_state_mib"] = sum(
+        v.numel() * v.element_size() for v in list(got.scene.params().values())
+        + list(got.adam.mu.values()) + list(got.adam.nu.values())) / 2**20
+    # one refine: gathered, refined with the same noise, sharded again
+    gathered = counted("gauss_refine_gather", lambda: gather_train_state(got, gmesh))
+    refine(gathered.scene, gathered.adam, gathered.refine, REFINE_STEP, cfg,
+           21, W, generator=gen())
+    refined = gather_train_state(shard_train_state(gathered, gmesh), gmesh)
+    refine(want.scene, want.adam, want.refine, REFINE_STEP, cfg, 21, W,
+           generator=gen())
+    bad = _mismatches(_flat_copy(refined), _flat_copy(want))
+    assert not bad, f"the sharded refine differs: {bad}"
+    out.update({"gauss." + k: v for k, v in _flat_copy(refined).items()
+                if k.startswith(".scene")})
+    report["launches"] = launches
+    report["backend"] = dist.get_backend(data.group)  # gloo, on CUDA tensors
+    out["report"] = json.dumps(report)
+    dist.barrier()
+    np.savez(io / f"out_{rank}.npz", **out)
+    dist.destroy_process_group()
+    return 0
 
 
 def trace(label, fn, top: int = 8, show: tuple = ()) -> dict:

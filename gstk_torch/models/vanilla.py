@@ -2,7 +2,8 @@
 ``gstk_tpu/models/vanilla.py``).
 
 :func:`render_scene` runs projection and SH (:func:`splat_inputs`) and one
-fused rasterization pass with RGB plus depth as a 4th channel; a zero
+fused rasterization pass with RGB plus depth as a 4th channel
+(:func:`render_splats`); a zero
 ``xys_offset`` gives the screen-space positional gradient that densification
 reads. :func:`rgb_loss` is (1 - lambda) L1 + lambda (1 - SSIM) with an
 optional mask and scale regularizer. Wherever gstk_tpu clips a
@@ -133,6 +134,42 @@ def splat_inputs(
     }
 
 
+def render_splats(
+    inputs: Dict[str, torch.Tensor],
+    img_height: int,
+    img_width: int,
+    background: torch.Tensor,
+    raster_config: RasterizeConfig = RasterizeConfig(),
+) -> Dict[str, torch.Tensor]:
+    """Rasterize :func:`splat_inputs`' outputs with RGB and depth in one
+    pass: rgb (H,W,3), depth (H,W), alpha (H,W), background, radii,
+    visible, num_intersects."""
+    bg4 = torch.cat([background, background.new_zeros(1)])  # depth bg = 0
+    img4, alpha, raster_info = rasterize(
+        **inputs, img_height=img_height, img_width=img_width,
+        background=bg4, config=raster_config, return_info=True,
+    )
+    rgb = img4[..., :3]
+    rgb = torch.minimum(rgb, torch.ones_like(rgb))
+    depth_acc = img4[..., 3]
+    # depth / alpha where alpha > 0, else the max accumulated depth
+    fill = depth_acc.max().detach()
+    depth = torch.where(
+        alpha > 0,
+        depth_acc / torch.maximum(alpha, torch.full_like(alpha, 1e-10)),
+        fill,
+    )
+    return {
+        "rgb": rgb,
+        "depth": depth,
+        "alpha": alpha,
+        "background": background,
+        "radii": inputs["radii"],
+        "visible": inputs["radii"] > 0,
+        "num_intersects": raster_info["num_intersects"],
+    }
+
+
 def render_scene(
     scene: GaussianScene,
     camera: Camera,
@@ -161,30 +198,8 @@ def render_scene(
     )
     if xys_offset is not None:
         inputs["xys"] = inputs["xys"] + xys_offset
-    bg4 = torch.cat([background, background.new_zeros(1)])  # depth bg = 0
-    img4, alpha, raster_info = rasterize(
-        **inputs, img_height=img_height, img_width=img_width,
-        background=bg4, config=raster_config, return_info=True,
-    )
-    rgb = img4[..., :3]
-    rgb = torch.minimum(rgb, torch.ones_like(rgb))
-    depth_acc = img4[..., 3]
-    # depth / alpha where alpha > 0, else the max accumulated depth
-    fill = depth_acc.max().detach()
-    depth = torch.where(
-        alpha > 0,
-        depth_acc / torch.maximum(alpha, torch.full_like(alpha, 1e-10)),
-        fill,
-    )
-    return {
-        "rgb": rgb,
-        "depth": depth,
-        "alpha": alpha,
-        "background": background,
-        "radii": inputs["radii"],
-        "visible": inputs["radii"] > 0,
-        "num_intersects": raster_info["num_intersects"],
-    }
+    return render_splats(inputs, img_height, img_width, background,
+                         raster_config)
 
 
 def composite_gt_with_background(image, background):

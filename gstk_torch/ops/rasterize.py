@@ -85,6 +85,25 @@ def _tiles_to_image(tiles, tile_bounds, block_width, img_height, img_width):
     return img[:img_height, :img_width]
 
 
+def footprints(radii, conics, opacities, config: RasterizeConfig):
+    """Each Gaussian's (N, 2) footprint half-extents in pixels (the tight
+    visible-support extents, or the 3-sigma square) and whether it has one."""
+    radii_f = radii.to(torch.float32)
+    if config.tight_culling:
+        ext = tight_extents(conics.detach(), opacities.detach(), radii_f)
+    else:
+        ext = torch.stack([radii_f, radii_f], dim=-1)
+    return ext, (ext[:, 0] > 0) & (ext[:, 1] > 0)
+
+
+def tile_counts(xys, ext, alive, tile_bounds, block_width) -> torch.Tensor:
+    """Tiles each Gaussian's footprint covers within ``tile_bounds`` (0
+    without a footprint), int32."""
+    tmin, tmax = tile_bbox(xys.detach(), ext, tile_bounds, block_width)
+    area = (tmax[:, 0] - tmin[:, 0]) * (tmax[:, 1] - tmin[:, 1])
+    return torch.where(alive, area, 0).to(torch.int32)
+
+
 def rasterize(
     xys: torch.Tensor,
     depths: torch.Tensor,
@@ -118,12 +137,7 @@ def rasterize(
     bands = min(bands, tiles_y_total)
     rows_per = -(-tiles_y_total // bands)
 
-    radii_f = radii.to(torch.float32)
-    if config.tight_culling:
-        ext = tight_extents(conics.detach(), opacities.detach(), radii_f)
-    else:
-        ext = torch.stack([radii_f, radii_f], dim=-1)
-    ext_alive = (ext[:, 0] > 0) & (ext[:, 1] > 0)
+    ext, ext_alive = footprints(radii, conics, opacities, config)
 
     band_imgs, band_ts, band_isects = [], [], []
     for b in range(bands):
@@ -138,9 +152,7 @@ def rasterize(
         else:
             shift = torch.tensor([0.0, float(y0)], device=xys.device)
             xys_b = xys - shift
-        tmin, tmax = tile_bbox(xys_b.detach(), ext, (tiles_x, rows_b), bw)
-        area = (tmax[:, 0] - tmin[:, 0]) * (tmax[:, 1] - tmin[:, 1])
-        counts_b = torch.where(ext_alive, area, 0).to(torch.int32)
+        counts_b = tile_counts(xys_b, ext, ext_alive, (tiles_x, rows_b), bw)
         img_b, t_b, ni = _rasterize_band(
             xys_b, depths, ext, conics, counts_b, colors, opacities,
             band_h, img_width, config,

@@ -1,2 +1,3 @@
-"""Data processing: COLMAP models and depth alignment (port of
-``gstk_tpu/process_data``)."""
+"""Data processing (port of ``gstk_tpu/process_data``): COLMAP models,
+depth alignment, the images-to-dataset pipeline, monocular depth, equirect
+extraction and Aria capture conversion."""

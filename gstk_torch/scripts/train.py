@@ -5,7 +5,10 @@
 
 The flags are gstk_tpu's. ``--device``, given before the method, picks the
 torch device; without it the run is on ``cuda`` and raises when there is no
-card. The resolved config is saved next to the outputs (``config.yml``),
+card. Multi-device runs start one process per device, under ``torchrun
+--nproc-per-node N -m gstk_torch.scripts.train ...`` or with
+``--coordinator-address host:port --num-processes N --process-id i`` on
+each; rank 0 writes the config, checkpoints and metrics. The resolved config is saved next to the outputs (``config.yml``),
 then the trainer runs and the final eval is printed.
 """
 
@@ -55,10 +58,11 @@ def main(argv=None) -> Trainer:
 
     trainer = Trainer(config, device=device)
     trainer.setup()
-    save_config(config.run_dir / "config.yml", config)
+    if not trainer.rank:
+        save_config(config.run_dir / "config.yml", config)
     trainer.train()
     results = trainer.eval_all(step=config.max_num_iterations)
-    if results:
+    if results and not trainer.rank:
         print(f"Final eval: {results}")
     return trainer
 

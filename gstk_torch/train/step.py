@@ -18,8 +18,20 @@ joins the loss, and the adjustments get their own exp-decayed Adam group,
 stepped at the state's step with no update mask.
 
 ``micro_batch`` > 1 sums gradients and statistics over that many cameras in
-a Python loop and applies Adam once to the sum. Data parallelism (M15)
-raises ``NotImplementedError``.
+a Python loop and applies Adam once to the sum.
+
+With ``axis_name`` (``"data"``) the step is one rank's share of a
+data-parallel step over the mesh's axis of that name
+(:mod:`gstk_torch.parallel.mesh`), each rank with its own camera: the
+gradients of every group and the loss metrics are averaged over the axis
+(gstk_tpu's ``pmean``: a sum, then a division by the axis size) in one flat
+f32 all-reduce, the visibility counts summed as int32 (exact) and the radii
+and intersection counts maxed in one int32 all-reduce each, so every rank
+applies the same update and the same densify statistics. A mesh with a
+``"gauss"`` axis shards the scene over it
+(:mod:`gstk_torch.parallel.gaussian_sharding`): the step renders through
+the gathered projection, sums the alive count and the camera group's
+gradient over that axis, and keeps Adam and the statistics local.
 """
 
 from __future__ import annotations
@@ -45,6 +57,8 @@ from gstk_torch.models.vanilla import (
     rgb_loss,
 )
 from gstk_torch.ops.rasterize import RasterizeConfig
+from gstk_torch.parallel import gaussian_sharding
+from gstk_torch.parallel.mesh import Mesh, get_mesh
 from gstk_torch.train.optim import AdamState, OptimizerConfig, adam_step, init_adam
 from gstk_torch.train.strategy import RefineState, init_refine_state
 from gstk_torch.utils.losses import f32_convolutions
@@ -97,6 +111,14 @@ def _background(generator: Optional[torch.Generator], mode: str,
     raise ValueError(mode)
 
 
+def _lane_norm(g: torch.Tensor) -> torch.Tensor:
+    """Each row's Euclidean norm of an (N, 2) tensor, lane by lane:
+    ``torch.linalg.norm`` reduces in vectors whose split follows N, so a
+    Gaussian shard's norms would differ from the whole scene's in the last
+    bit."""
+    return torch.sqrt(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1])
+
+
 def _camera_at(cameras: Camera, i: int) -> Camera:
     """Micro-step i's camera from a Camera whose fields have a leading
     micro-batch dimension."""
@@ -116,6 +138,7 @@ def make_train_step(
     frozen_groups: tuple = (),
     camera_opt: Optional[CameraOptConfig] = None,
     micro_batch: int = 1,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The step function for a fixed (image size, active SH degree).
 
@@ -139,11 +162,18 @@ def make_train_step(
     must carry the camera-opt group (``init_train_state(scene,
     num_cameras=N)``) and the step needs ``camera_index``. The state is
     updated in place and returned; metrics are 0-d tensors on the device
-    (no host sync)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data parallelism (axis_name) is not ported yet (M15)"
-        )
+    (no host sync).
+
+    ``axis_name`` names the data-parallel axis of ``mesh`` (by default the
+    one-axis mesh over the whole process group, so it needs one); a
+    ``mesh`` with a ``"gauss"`` axis takes a state sharded along it
+    (``gaussian_sharding.shard_train_state``)."""
+    if axis_name is not None and mesh is None:
+        mesh = get_mesh()
+    data_axis = mesh[axis_name] if axis_name is not None else None
+    gauss_axis = (mesh[gaussian_sharding.GAUSS_AXIS]
+                  if mesh is not None and gaussian_sharding.GAUSS_AXIS in mesh
+                  else None)
     if not isinstance(model_cfg, VanillaConfig):
         raise TypeError(f"{type(model_cfg).__name__} is not a method config")
     if micro_batch < 1:
@@ -159,6 +189,49 @@ def make_train_step(
         )
     is_depth_model = isinstance(model_cfg, DepthConfig)
     max_img_size = max(img_height, img_width)
+    # loss terms that read the scene (over every lane, gathered when sharded)
+    reads_scene = ((model_cfg.use_scale_regularization and apply_scale_reg)
+                   or getattr(model_cfg, "use_sparse_loss", False))
+
+    def synchronize(grads, cam_grad, cam_rep, g_norm, visible, radii,
+                    metrics):
+        """The cross-rank reductions of one step: gradients and loss metrics
+        averaged over the data axis, the screen-gradient norms and
+        visibility counts summed, radii and intersection counts maxed; over
+        the Gaussian axis the camera group's partial gradients summed, then
+        ``cam_rep``, the gradient every rank holds whole, added. Returns
+        them with ``num_alive`` (summed over the Gaussian axis)."""
+        num_alive = metrics.pop("num_alive")
+        if gauss_axis is not None:
+            num_alive = gauss_axis.sum_(num_alive.clone())
+            if cam_grad is not None:
+                cam_grad = gauss_axis.sum_(cam_grad.clone()) + cam_rep
+        if data_axis is not None:
+            means = [k for k in metrics if k != "num_intersects"]
+            names = list(grads)
+            parts = ([g_norm] + [grads[k] for k in names]
+                     + ([cam_grad] if cam_grad is not None else [])
+                     + [metrics[k] for k in means])
+            flat = torch.cat([x.reshape(-1).to(torch.float32) for x in parts])
+            data_axis.sum_(flat)
+            n = g_norm.numel()
+            flat[n:].div_(data_axis.size)
+            pieces = list(torch.split(flat, [x.numel() for x in parts]))
+            g_norm = pieces.pop(0)
+            grads = {k: pieces.pop(0).reshape(grads[k].shape) for k in names}
+            if cam_grad is not None:
+                cam_grad = pieces.pop(0).reshape(cam_grad.shape)
+            metrics = {**metrics,
+                       **{k: pieces.pop(0).reshape(()) for k in means}}
+            visible = data_axis.sum_(visible.to(torch.int32))
+            peak = data_axis.max_(torch.cat(
+                [radii.to(torch.int32),
+                 metrics["num_intersects"].reshape(1).to(torch.int32)]))
+            radii = peak[:-1]
+            metrics["num_intersects"] = peak[-1].to(
+                metrics["num_intersects"].dtype)
+        metrics["num_alive"] = num_alive
+        return grads, cam_grad, g_norm, visible, radii, metrics
 
     def grads_once(state, camera, gt_image, generator, mask, depth,
                    mono_scale, mono_shift, camera_index):
@@ -182,25 +255,43 @@ def make_train_step(
                 cam_adj.index_select(0, camera_index.reshape(1).long())[0],
                 camera_opt.mode,
             )
-        out = render_scene(
-            scene, cam, img_height, img_width, sh_degree=sh_degree,
-            background=background, config=model_cfg,
-            raster_config=raster_cfg, xys_offset=xys_offset,
-        )
-        ld = rgb_loss(out["rgb"], gt, scene, model_cfg, mask, apply_scale_reg)
+        render_kw = dict(sh_degree=sh_degree, background=background,
+                         config=model_cfg, raster_config=raster_cfg,
+                         xys_offset=xys_offset)
+        loss_scene = scene
+        if gauss_axis is None:
+            out = render_scene(scene, cam, img_height, img_width, **render_kw)
+        else:
+            out = gaussian_sharding.render_scene_gauss_sharded(
+                scene, cam, img_height, img_width, mesh=gauss_axis, **render_kw)
+            if reads_scene:
+                loss_scene = gaussian_sharding.loss_scene(scene, gauss_axis)
+        ld = rgb_loss(out["rgb"], gt, loss_scene, model_cfg, mask,
+                      apply_scale_reg)
         depth_terms = {}
         if is_depth_model:
             depth_terms = depth_loss_terms(
-                model_cfg, state.step, out["depth"], depth, gt, scene,
+                model_cfg, state.step, out["depth"], depth, gt, loss_scene,
                 generator, mask=mask, mono_scale=mono_scale,
                 mono_shift=mono_shift, camera=cam,
             )
             ld.update(depth_terms)
-        if use_cam_opt:
-            ld["camera_opt_regularizer"] = pose_regularizer(cam_adj, camera_opt)
         loss = sum(ld.values())
+        cam_rep = None
+        if use_cam_opt:
+            reg = pose_regularizer(cam_adj, camera_opt)
+            ld["camera_opt_regularizer"] = reg
+            if gauss_axis is None:
+                loss = loss + reg
+            else:
+                # every rank holds the whole regulariser but only its lanes'
+                # share of the projection's camera gradient: the regulariser's
+                # gradient is kept apart and added after the shares are summed
+                cam_rep = torch.autograd.grad(reg, cam_adj)[0]
         with f32_convolutions():  # SSIM's convolution backward, in f32 too
             grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        if cam_rep is not None:
+            loss = loss + reg  # logged whole, as without the Gaussian axis
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(wrt, grads)]
         mse = torch.mean((out["rgb"].detach() - gt[..., :3]) ** 2)
@@ -213,7 +304,7 @@ def make_train_step(
         }
         n = len(params)
         cam_grad = grads[n + 1] if use_cam_opt else None
-        return (dict(zip(params, grads[:n])), grads[n], cam_grad,
+        return (dict(zip(params, grads[:n])), grads[n], cam_grad, cam_rep,
                 out["radii"], metrics)
 
     def apply(state, grads, cam_grad, refine):
@@ -253,20 +344,22 @@ def make_train_step(
                    mono_shift: Optional[torch.Tensor] = None,
                    camera_index=None):
         num_alive = state.scene.num_alive
-        grads, g_xys, cam_grad, radii, metrics = grads_once(
+        grads, g_xys, cam_grad, cam_rep, radii, metrics = grads_once(
             state, camera, gt_image, generator, mask, depth, mono_scale,
             mono_shift, camera_index,
         )
+        metrics["num_alive"] = num_alive
+        grads, cam_grad, g_norm, visible, radii, metrics = synchronize(
+            grads, cam_grad, cam_rep, _lane_norm(g_xys), radii > 0,
+            radii, metrics)
         refine = RefineState(
-            xys_grad_norm=state.refine.xys_grad_norm
-            + torch.linalg.norm(g_xys, dim=-1),
-            vis_counts=state.refine.vis_counts + (radii > 0).to(torch.float32),
+            xys_grad_norm=state.refine.xys_grad_norm + g_norm,
+            vis_counts=state.refine.vis_counts + visible.to(torch.float32),
             max_2dsize=torch.maximum(
                 state.refine.max_2dsize,
                 radii.to(torch.float32) / max_img_size,
             ),
         )
-        metrics["num_alive"] = num_alive
         state = apply(state, grads, cam_grad, refine)
         return state, camera_metrics(state, metrics)
 
@@ -283,13 +376,14 @@ def make_train_step(
                          camera_indices=None):
         num_alive = state.scene.num_alive
         capacity = state.scene.capacity
-        zeros = lambda: torch.zeros(capacity, dtype=torch.float32,
-                                    device=state.scene.means.device)
-        gsum, csum, ys = None, None, []
-        gx_sum, vis_sum, rad_max = zeros(), zeros(), zeros()
+        zeros = lambda dtype: torch.zeros(capacity, dtype=dtype,
+                                          device=state.scene.means.device)
+        gsum, csum, rsum, ys = None, None, None, []
+        gx_sum = zeros(torch.float32)
+        vis_sum, rad_max = zeros(torch.int32), zeros(torch.int32)
         at = lambda xs, i: None if xs is None else xs[i]
         for i in range(micro_batch):
-            grads, g_xys, cam_grad, radii, m = grads_once(
+            grads, g_xys, cam_grad, cam_rep, radii, m = grads_once(
                 state, _camera_at(cameras, i), gt_images[i], generator,
                 at(masks, i), at(depths, i), at(mono_scales, i),
                 at(mono_shifts, i), at(camera_indices, i),
@@ -298,21 +392,25 @@ def make_train_step(
                                                for k, v in grads.items()}
             if use_cam_opt:
                 csum = cam_grad if csum is None else csum + cam_grad
-            gx_sum = gx_sum + torch.linalg.norm(g_xys, dim=-1)
-            vis_sum = vis_sum + (radii > 0).to(torch.float32)
-            rad_max = torch.maximum(rad_max, radii.to(torch.float32))
+            if cam_rep is not None:
+                rsum = cam_rep if rsum is None else rsum + cam_rep
+            gx_sum = gx_sum + _lane_norm(g_xys)
+            vis_sum = vis_sum + (radii > 0).to(torch.int32)
+            rad_max = torch.maximum(rad_max, radii.to(torch.int32))
             ys.append(m)
-        refine = RefineState(
-            xys_grad_norm=state.refine.xys_grad_norm + gx_sum,
-            vis_counts=state.refine.vis_counts + vis_sum,
-            max_2dsize=torch.maximum(state.refine.max_2dsize,
-                                     rad_max / max_img_size),
-        )
         stacked = {k: torch.stack([m[k] for m in ys]) for k in ys[0]}
         metrics = {k: v.mean() for k, v in stacked.items()
                    if k != "num_intersects"}
         metrics["num_alive"] = num_alive
         metrics["num_intersects"] = stacked["num_intersects"].max()
+        gsum, csum, gx_sum, vis_sum, rad_max, metrics = synchronize(
+            gsum, csum, rsum, gx_sum, vis_sum, rad_max, metrics)
+        refine = RefineState(
+            xys_grad_norm=state.refine.xys_grad_norm + gx_sum,
+            vis_counts=state.refine.vis_counts + vis_sum.to(torch.float32),
+            max_2dsize=torch.maximum(state.refine.max_2dsize,
+                                     rad_max.to(torch.float32) / max_img_size),
+        )
         state = apply(state, gsum, csum, refine)
         return state, camera_metrics(state, metrics)
 

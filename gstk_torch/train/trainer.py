@@ -22,9 +22,19 @@ saves), so the loop adds no host sync to a step. Random numbers (random
 backgrounds, split noise) come from one ``torch.Generator`` on the device,
 seeded ``seed + 1``, in place of gstk_tpu's PRNG key.
 
-Not ported yet, and refused at ``setup``: Gaussian sharding, multi-host
-runs and data parallelism over more than one visible device (M15).
-gstk_tpu's persistent compile cache has no counterpart in eager PyTorch.
+Multi-device training runs one process per device
+(:mod:`gstk_torch.parallel`): ``coordinator_address`` / ``num_processes`` /
+``process_id`` (or ``torchrun``'s environment) start the process group at
+``setup``. With more than one rank, ``param_sharding="auto"`` shards the
+state over the ranks (each renders every step's camera through the
+gathered projection; refinement and growth gather the state and shard it
+again), else ``data_parallel="auto"`` gives each rank its share of the
+train views (``num_shards`` = world size) and averages the gradients. Under
+data parallelism each rank draws its step's random numbers from its own
+generator, seeded from (seed, rank), where gstk_tpu splits one key; the
+refinement noise comes from the shared generator, so every rank holds the
+same state. Rank 0 alone writes checkpoints, metrics and evals. gstk_tpu's
+persistent compile cache has no counterpart in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gstk_torch import DeviceLike, resolve_device
 from gstk_torch.core.camera_opt import CameraOptConfig
@@ -51,6 +62,8 @@ from gstk_torch.models.vanilla import (
     render_scene,
 )
 from gstk_torch.ops.rasterize import RasterizeConfig
+from gstk_torch.parallel import gaussian_sharding as gsharding
+from gstk_torch.parallel import mesh as pmesh
 from gstk_torch.train import checkpoint as ckpt
 from gstk_torch.train.optim import AdamState, OptimizerConfig
 from gstk_torch.train.step import (
@@ -63,6 +76,7 @@ from gstk_torch.train.strategy import RefineState, refine
 from gstk_torch.utils import losses as loss_utils
 from gstk_torch.utils.colors import EVAL_BACKGROUND
 from gstk_torch.utils.lpips import lpips
+from gstk_torch.utils.math import area_weights
 from gstk_torch.utils.profiler import PROFILER, timer
 from gstk_torch.utils.writer import (
     EventName,
@@ -118,12 +132,12 @@ class TrainerConfig:
     enable_tensorboard: bool = False
     vis: str = "none"  # none | viewer
     viewer_port: int = 7007
-    # data parallelism over cameras: "auto" uses every visible device when
-    # there is more than one (M15); "off" forces one device
+    # data parallelism over cameras: "auto" trains on every rank of the
+    # process group when it has more than one
     data_parallel: str = "auto"  # auto | off
-    # Gaussian sharding over devices (M15)
+    # Gaussian sharding over the ranks ("auto"; before data parallelism)
     param_sharding: str = "off"  # off | auto
-    # multi-host bootstrap (M15)
+    # the process group's rendezvous: one process per device
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
@@ -204,33 +218,13 @@ def score_views(render: Callable[[CachedFrame], torch.Tensor], frames,
     return host(psnrs), host(ssims), host(lps), host(preds)
 
 
-def _area_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) weights of OpenCV's INTER_AREA along one axis (its
-    ``computeResizeAreaTab``): each output pixel averages the input pixels
-    its cell covers, weighted by the covered length."""
-    scale = 1.0 / (n_out / n_in)
-    out = np.zeros((n_out, n_in), np.float64)
-    for dx in range(n_out):
-        fsx1 = dx * scale
-        fsx2 = fsx1 + scale
-        cell = min(scale, n_in - fsx1)
-        sx2 = min(int(np.floor(fsx2)), n_in - 1)
-        sx1 = min(int(np.ceil(fsx1)), sx2)
-        if sx1 - fsx1 > 1e-3:
-            out[dx, sx1 - 1] = np.float32((sx1 - fsx1) / cell)
-        out[dx, sx1:sx2] = np.float32(1.0 / cell)
-        if fsx2 - sx2 > 1e-3:
-            out[dx, sx2] = np.float32(min(fsx2 - sx2, 1.0, cell) / cell)
-    return out
-
-
 def area_downscale(images: torch.Tensor, d: int) -> torch.Tensor:
     """Coarse-to-fine downscale on the images' device: (..., H, W, C) float
     -> (..., H // d, W // d, C), OpenCV INTER_AREA's pixel-area average.
     Where d divides the size that is the d x d block mean."""
     h, w = images.shape[-3:-1]
     wy, wx = (
-        torch.as_tensor(_area_weights(n, n // d), dtype=images.dtype,
+        torch.as_tensor(area_weights(n, n // d), dtype=images.dtype,
                         device=images.device)
         for n in (h, w)
     )
@@ -297,34 +291,69 @@ class Trainer:
         self._isect_window: list = []
         self._step_cache: Dict = {}
         self._dev_cache: Dict = {}
+        # one process, one rank, until setup joins a process group
+        self.world, self.rank = 1, 0
+        self.mesh = self.gauss_mesh = None
 
     # -- setup ------------------------------------------------------------
     def _check_supported(self) -> None:
         cfg = self.config
-        if cfg.param_sharding != "off":
-            raise NotImplementedError(
-                "Gaussian sharding (param_sharding) is not ported yet (M15)"
-            )
-        if cfg.coordinator_address is not None:
-            raise NotImplementedError(
-                "multi-host training (coordinator_address) is not ported yet "
-                "(M15)"
-            )
-        visible = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if cfg.data_parallel == "auto" and visible > 1:
-            raise NotImplementedError(
-                f"data parallelism over {visible} visible devices is not "
-                "ported yet (M15); pass --data-parallel off or show one device"
-            )
         if cfg.vis not in ("none", "viewer"):
             raise ValueError(f"vis={cfg.vis!r}: none or viewer")
+        for name in ("data_parallel", "param_sharding"):
+            if getattr(cfg, name) not in ("auto", "off"):
+                raise ValueError(f"{name}={getattr(cfg, name)!r}: auto or off")
+        visible = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        if (visible > 1 and self.device.index is None
+                and not pmesh.group_configured(cfg.coordinator_address)
+                and "auto" in (cfg.data_parallel, cfg.param_sharding)):
+            raise RuntimeError(
+                f"{visible} CUDA devices are visible and there is no process "
+                "group: gstk_torch drives one device a process. Start one "
+                f"process per device (torchrun --nproc-per-node {visible} -m "
+                "gstk_torch.scripts.train ..., or --coordinator-address "
+                "--num-processes --process-id on each), or train on one "
+                "(--data-parallel off, or CUDA_VISIBLE_DEVICES)"
+            )
+
+    def _start_group(self) -> None:
+        """Join the process group (when configured) and lay out the mesh:
+        Gaussian sharding or data parallelism over more than one rank."""
+        cfg = self.config
+        pmesh.initialize_distributed(cfg.coordinator_address,
+                                     cfg.num_processes, cfg.process_id,
+                                     device=self.device)
+        grouped = dist.is_initialized()
+        self.world = dist.get_world_size() if grouped else 1
+        self.rank = dist.get_rank() if grouped else 0
+        self.mesh = self.gauss_mesh = None
+        if grouped and self.device.type == "cuda":
+            self.device = pmesh.local_device(self.device)
+        if self.world > 1:
+            if cfg.param_sharding == "auto":
+                self.gauss_mesh = gsharding.make_gauss_mesh()
+                print(f"Gaussian-sharded training over {self.world} ranks")
+            elif cfg.data_parallel == "auto":
+                self.mesh = pmesh.get_mesh()
+                print(f"Data-parallel training over {self.world} ranks")
+            else:
+                raise ValueError(
+                    f"{self.world} ranks with data_parallel and param_sharding "
+                    "both off: each rank would train alone"
+                )
 
     def setup(self) -> None:
         cfg = self.config
         self._check_supported()
+        self._start_group()
         self.run_dir = cfg.run_dir
         self.run_dir.mkdir(parents=True, exist_ok=True)
-        self.datamanager = FullImageDatamanager(cfg.dataparser, seed=cfg.seed)
+        dp = self.mesh is not None
+        self.datamanager = FullImageDatamanager(
+            cfg.dataparser, seed=cfg.seed,
+            num_shards=self.world if dp else 1,
+            shard_index=self.rank if dp else 0,
+        )
         seed = self.datamanager.seed_points()
         n_seed = (
             seed[0].shape[0] if seed is not None else cfg.model.num_random
@@ -336,25 +365,34 @@ class Trainer:
             random_scale=cfg.model.random_scale,
             sh_degree=cfg.model.sh_degree, device=self.device,
         )
-        # the camera-opt group: one adjustment a train view
-        num_cams = (self.datamanager.num_train
+        # the camera-opt group: one adjustment a train view (of every rank)
+        num_cams = (self.datamanager.num_train_global
                     if cfg.camera_opt.mode != "off" else None)
         self.state = init_train_state(scene, num_cameras=num_cams)
-        # train indices on the device, for the camera-opt group: indexing
-        # this keeps the step free of a host-to-device copy
-        self._cam_indices = torch.arange(self.datamanager.num_train,
-                                         dtype=torch.int32, device=self.device)
+        # global train indices on the device, for the camera-opt group:
+        # indexing this keeps the step free of a host-to-device copy
+        self._cam_indices = torch.arange(
+            self.datamanager.num_train_global, dtype=torch.int32,
+            device=self.device,
+        )[self.datamanager.shard_index::self.datamanager.num_shards]
         self.raster_cfg = RasterizeConfig(
             chunk_size=cfg.raster_chunk, isect_capacity=cfg.isect_capacity
         )
+        # the shared generator: refinement (every rank alike) and, unless
+        # ranks train on their own cameras, the steps
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed + 1)
+        self.step_generator = self.generator
+        if dp:
+            self.step_generator = torch.Generator(device=self.device)
+            self.step_generator.manual_seed(int(np.random.SeedSequence(
+                (cfg.seed, self.rank)).generate_state(1)[0]))
         self.writer = GLOBAL_WRITER
-        self.writer.backends = [
+        self.writer.backends = [] if self.rank else [
             LocalWriter(cfg.max_num_iterations, cfg.log_every),
             JsonlWriter(self.run_dir / "metrics.jsonl"),
         ]
-        if cfg.enable_tensorboard:
+        if cfg.enable_tensorboard and not self.rank:
             from gstk_torch.utils.writer import TensorBoardWriter
 
             self.writer.backends.append(TensorBoardWriter(self.run_dir / "tb"))
@@ -383,8 +421,10 @@ class Trainer:
                         ),
                     )
                 print(f"Resumed from {path} (raster: {self.raster_cfg})")
+        if self.gauss_mesh is not None:
+            self.state = gsharding.shard_train_state(self.state, self.gauss_mesh)
         self.viewer = None
-        if cfg.vis == "viewer":
+        if cfg.vis == "viewer" and not self.rank:
             from gstk_torch.viewer.viser_viewer import make_viewer
 
             # renders as the evals do; the caller stops it (viewer.stop())
@@ -485,6 +525,8 @@ class Trainer:
                 self.config.model, self.raster_cfg, self.config.optim,
                 h, w, sh_degree, apply_scale_reg=scale_reg,
                 frozen_groups=frozen, camera_opt=self.config.camera_opt,
+                axis_name=pmesh.DATA_AXIS if self.mesh is not None else None,
+                mesh=self.mesh or self.gauss_mesh,
             )
         return self._step_cache[key]
 
@@ -502,14 +544,32 @@ class Trainer:
             "sh_degree": self._sh_degree(int(self.state.step)),
         }
 
+    def _full_state(self) -> TrainState:
+        """The whole state: gathered from every rank under Gaussian sharding
+        (every rank must call it then), else the state itself."""
+        if self.gauss_mesh is None:
+            return self.state
+        return gsharding.gather_train_state(self.state, self.gauss_mesh)
+
+    def _set_full_state(self, state: TrainState) -> None:
+        self.state = (state if self.gauss_mesh is None
+                      else gsharding.shard_train_state(state, self.gauss_mesh))
+
+    def _capacity(self) -> int:
+        """The scene's capacity over every rank."""
+        return self.state.scene.capacity * (
+            self.world if self.gauss_mesh is not None else 1)
+
     def _refine(self) -> None:
-        """Refine the state at its step, in place."""
-        s = self.state
+        """Refine the state at its step, in place (on the gathered state,
+        then sharded again, under Gaussian sharding)."""
+        s = self._full_state()
         _, _, s.refine, _ = refine(
             s.scene, s.adam, s.refine, s.step, self.config.model,
-            self.datamanager.num_train, max(self.datamanager.image_size),
-            generator=self.generator,
+            self.datamanager.num_train_global,
+            max(self.datamanager.image_size), generator=self.generator,
         )
+        self._set_full_state(s)
 
     # -- capacity management ----------------------------------------------
     def _drain_isect_window(self, metrics_host: Dict) -> Dict:
@@ -524,10 +584,10 @@ class Trainer:
         return out
 
     def _grow_capacity(self, new_cap: int) -> None:
-        state = self.state
+        state = self._full_state()
         extra = new_cap - state.scene.capacity
         pad = lambda x: torch.cat([x, x.new_zeros((extra,) + x.shape[1:])])
-        self.state = TrainState(
+        self._set_full_state(TrainState(
             scene=grow_scene(state.scene, new_cap),
             adam=AdamState(
                 count=state.adam.count,
@@ -538,7 +598,7 @@ class Trainer:
             step=state.step,
             cam_adjust=state.cam_adjust,
             cam_adam=state.cam_adam,
-        )
+        ))
 
     def _maybe_grow(self, metrics: Dict) -> None:
         """gstk_tpu's growth policy on fetched counts: Gaussian capacity x
@@ -549,7 +609,7 @@ class Trainer:
         would stay under 0.6 of the buffer."""
         cfg = self.config
         num_alive = int(metrics.get("num_alive", 0))
-        cap = self.state.scene.capacity
+        cap = self._capacity()
         if num_alive > 0.85 * cap:
             new_cap = min(
                 _round_up_pow2(int(cap * cfg.capacity_growth)),
@@ -622,7 +682,7 @@ class Trainer:
             inputs = self._train_inputs(cam_idx, frame, d)
             with timer("train_iteration"):
                 self.state, metrics = step_fn(
-                    self.state, *inputs[:2], self.generator, *inputs[2:],
+                    self.state, *inputs[:2], self.step_generator, *inputs[2:],
                     camera_index=self._camera_index(cam_idx),
                 )
             self._isect_window.append(metrics["num_intersects"])
@@ -646,16 +706,15 @@ class Trainer:
                 self.writer.put_scalar(EventName.ITER_TRAIN_TIME, dt, step)
                 self.writer.write_out_storage()
                 self._maybe_grow(self._drain_isect_window(metrics_host))
+                sharded_view = cfg.vis == "viewer" and self.gauss_mesh is not None
+                scene = (self._full_state().scene if sharded_view
+                         else self.state.scene)
                 if self.viewer is not None:
-                    self.viewer.update_scene(self.state.scene, metrics_host)
+                    self.viewer.update_scene(scene, metrics_host)
 
             if cfg.steps_per_save > 0 and (step + 1) % cfg.steps_per_save == 0:
                 with timer("save_checkpoint"):
-                    ckpt.save_checkpoint(
-                        self.run_dir / "ckpts", self.state,
-                        cfg.save_only_latest_checkpoint,
-                        extras=self._ckpt_meta(),
-                    )
+                    self._save_checkpoint()
             if (
                 cfg.steps_per_eval_image > 0
                 and (step + 1) % cfg.steps_per_eval_image == 0
@@ -667,12 +726,24 @@ class Trainer:
             ):
                 self.eval_all(step)
 
-        ckpt.save_checkpoint(
-            self.run_dir / "ckpts", self.state,
-            cfg.save_only_latest_checkpoint, extras=self._ckpt_meta(),
-        )
+        self._save_checkpoint()
         total = time.time() - t_start
         print(f"Training done in {total / 60:.1f} min. {PROFILER.report()}")
+
+    def _save_checkpoint(self) -> None:
+        """Rank 0 writes the (whole) state."""
+        state = self._full_state()
+        if not self.rank:
+            ckpt.save_checkpoint(
+                self.run_dir / "ckpts", state,
+                self.config.save_only_latest_checkpoint,
+                extras=self._ckpt_meta(),
+            )
+
+    def _evals_here(self) -> bool:
+        """Evals render on rank 0, and on every rank under Gaussian sharding
+        (the render gathers over the ranks); rank 0 alone logs them."""
+        return not self.rank or self.gauss_mesh is not None
 
     # -- eval ---------------------------------------------------------------
     def _eval_setting(self) -> Tuple[int, torch.Tensor]:
@@ -690,19 +761,21 @@ class Trainer:
         h, w = frame.image.shape[:2]
         camera = Camera.create(frame.fx, frame.fy, frame.cx, frame.cy,
                                frame.c2w, device=self.device)
+        kw = dict(sh_degree=sh_degree, background=background,
+                  config=self.config.model,
+                  raster_config=dataclasses.replace(self.raster_cfg,
+                                                    forward_only=True))
         with torch.no_grad():
-            return render_scene(
-                self.state.scene, camera, h, w, sh_degree=sh_degree,
-                background=background, config=self.config.model,
-                raster_config=dataclasses.replace(self.raster_cfg,
-                                                  forward_only=True),
-            )
+            if self.gauss_mesh is not None:
+                return gsharding.render_scene_gauss_sharded(
+                    self.state.scene, camera, h, w, mesh=self.gauss_mesh, **kw)
+            return render_scene(self.state.scene, camera, h, w, **kw)
 
     def eval_image(self, step: int) -> Dict[str, float]:
         """Render ONE eval view, cycling through the split, and log its
         PSNR / SSIM and test rays/s: a cheap signal between full evals."""
         frames = self.datamanager.eval_frames
-        if not frames:
+        if not frames or not self._evals_here():
             return {}
         cadence = max(self.config.steps_per_eval_image, 1)
         i = ((step + 1) // cadence) % len(frames)
@@ -722,7 +795,7 @@ class Trainer:
 
     def eval_all(self, step: int) -> Dict[str, float]:
         frames = self.datamanager.eval_frames
-        if not frames:
+        if not frames or not self._evals_here():
             return {}
         t0 = time.perf_counter()
         psnrs, ssims = self._score_views(frames)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # DC spherical-harmonic basis constant (Y_0^0 = 1/(2*sqrt(pi))).
@@ -81,3 +82,23 @@ def projection_matrix(znear: float, zfar: float, fovx, fovy) -> torch.Tensor:
         torch.stack([zero, zero, one, zero]),
     ]
     return torch.stack(rows, dim=0)
+
+
+def area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of OpenCV's INTER_AREA along one axis (its
+    ``computeResizeAreaTab``): each output pixel averages the input pixels
+    its cell covers, weighted by the covered length."""
+    scale = 1.0 / (n_out / n_in)
+    out = np.zeros((n_out, n_in), np.float64)
+    for dx in range(n_out):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, n_in - fsx1)
+        sx2 = min(int(np.floor(fsx2)), n_in - 1)
+        sx1 = min(int(np.ceil(fsx1)), sx2)
+        if sx1 - fsx1 > 1e-3:
+            out[dx, sx1 - 1] = np.float32((sx1 - fsx1) / cell)
+        out[dx, sx1:sx2] = np.float32(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            out[dx, sx2] = np.float32(min(fsx2 - sx2, 1.0, cell) / cell)
+    return out

@@ -800,3 +800,67 @@ def test_launch_counters_under_two_threads(cuda):
         assert len(frames) == 32 and all(f.max() > 0 for f in frames)
     finally:
         kernel.stop()
+
+
+def _torch_ranks():
+    """``tests/_torch_ranks.py``, loaded by its path: where ``tests`` names an
+    installed package, ``import tests._torch_ranks`` finds that one."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).with_name("_torch_ranks.py")
+    spec = importlib.util.spec_from_file_location("_torch_ranks", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_sharded_and_dp_steps_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card (NCCL takes one rank a card): two
+    Gaussian-sharded steps equal the replicated steps on the card bit for
+    bit, after a data-parallel step (rank r: camera r) both ranks hold
+    the same state, and two sharded co-gs steps with SO3xR3 camera
+    optimisation match the replicated ones as on the CPU
+    (``assert_cam_opt_matches``)."""
+    np.savez(tmp_path / "in.npz", case="card")
+    ranks = _torch_ranks()
+    outs = ranks.spawn("card", 2, tmp_path)
+    for o in outs:
+        keys = [k for k in o if k.startswith("step_ref.")]
+        for k in keys:
+            np.testing.assert_array_equal(o["step." + k[9:]], o[k], err_msg=k)
+        ranks.assert_cam_opt_matches(o)
+    for k in outs[0]:
+        if k.startswith("dp."):
+            np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
+
+
+def test_nccl_world_one_dp_step_is_the_step(cuda):
+    """A data-parallel step over a one-rank NCCL group equals the plain step
+    bit for bit: an all-reduce over one rank, and a mean over one, are the
+    identity."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gstk_torch.core.gaussians import scene_from_numpy as from_numpy
+    from gstk_torch.parallel.mesh import get_mesh, initialize_distributed
+    from gstk_torch.train.checkpoint import train_state_to_numpy
+    from gstk_torch.train.step import init_train_state
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        arrays, gt, cams, make = _torch_ranks().card_case(cuda)
+        want, m_want = make()(init_train_state(from_numpy(arrays, cuda)),
+                              cams[0], gt)
+        got, m_got = make(axis_name="data", mesh=get_mesh())(
+            init_train_state(from_numpy(arrays, cuda)), cams[0], gt)
+        for k, v in train_state_to_numpy(want).items():
+            np.testing.assert_array_equal(train_state_to_numpy(got)[k], v,
+                                          err_msg=k)
+        assert all(torch.equal(m_got[k], m_want[k]) for k in m_want)
+    finally:
+        dist.destroy_process_group()

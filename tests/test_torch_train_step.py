@@ -269,8 +269,8 @@ def test_step_loss_gradients_match_jax(bg, tmp_path):
 
 def test_train_step_options_and_later_slices(tmp_path):
     """A random background needs an explicit generator; camera optimisation
-    works (``camera_opt`` with a state made with ``num_cameras``); data
-    parallelism raises, naming its slice."""
+    works (``camera_opt`` with a state made with ``num_cameras``); a
+    data-parallel step (``axis_name``) needs a process group."""
     cfgs = (tvan.VanillaConfig(sh_degree=SH), RasterizeConfig(isect_capacity=ISECT),
             topt.OptimizerConfig(), H, W)
     state = tckpt.train_state_from_numpy(_flat(_jax_state(), tmp_path),
@@ -282,7 +282,7 @@ def test_train_step_options_and_later_slices(tmp_path):
     state, m = step_fn(state, _cameras(0)[1], gt,
                        generator=torch.Generator().manual_seed(0))
     assert int(state.step) == 1 and np.isfinite(float(m["loss"]))
-    with pytest.raises(NotImplementedError, match="M15"):
+    with pytest.raises(RuntimeError, match="process group"):
         tstep.make_train_step(*cfgs, sh_degree=SH, axis_name="data")
     cam_fn = tstep.make_train_step(
         *cfgs, sh_degree=SH, camera_opt=tco.CameraOptConfig(mode="SO3xR3"))
