@@ -1,6 +1,7 @@
 """Drive gstk_torch's render, train, eval and export paths, its three
-methods, the raytraced data, mono co-gs, the live viewer, data processing
-and the parallel paths on one CUDA card and check them.
+methods, the raytraced data, mono co-gs, the live viewer, data processing,
+the parallel paths and the quality workflow on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -194,16 +195,36 @@ line:
      be named and held to phase 10's tolerances), and one refine of the
      gathered state equal to the replicated refine; each rank's device
      peak, sharded and replicated, and the ms of the collectives;
+  18. quality path: (a) ``gstk_torch.tools.gen_raytraced_sharded`` (the
+     quality reference's band-limited capture) writes 6 views at 160x160
+     ss 3 on the card and on the CPU, every file equal byte for byte (PNGs,
+     ``transforms.json``, ``sparse.ply``); (b) ``gstk_torch.tools.
+     run_quality`` (the 15k recipe's flags, gs-train in process) on a copy
+     of 15(a)'s views whose seed cloud holds 460,000 points (15(a)'s,
+     picked with repeats and jittered by N(0, 0.12)), cut to 40 steps in
+     two stretches (the second resumed from the first's checkpoint), at
+     full resolution from step 0 and with ``--initial-capacity-headroom
+     1.0``, the counters reset just before: the trainer grows its capacity
+     2^19 -> 2^20 once, grows its intersection buffer to 2^21 and splits
+     into >= 2 bands on its own, the resumed stretch keeps both; K1-K4
+     launch once a band a step; (c) at the grown state, one train step in
+     those bands through the kernels against the same step in one band of
+     2^22 intersections (phase 10's tolerances): gradients add across
+     bands through K2 and K4; (d) gs-eval on (b)'s checkpoint equal to the
+     trainer's final eval bit for bit; (e) ``gstk_torch.tools.
+     convert_lpips_weights`` on random VGG16 and LPIPS-head state dicts,
+     its self-test on the card within rtol 1e-4 of the same on the CPU;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
 bounds, phase 14's launches under ``launches_methods``, phase 15's
 under ``launches_data_viewer``, phase 16's under
-``launches_process_data`` and phase 17's under ``launches_parallel``, per
-rank and path; P1-P3:
+``launches_process_data``, phase 17's under ``launches_parallel``, per
+rank and path, and phase 18's under ``launches_quality``; P1-P3:
 launches in phase 12's run of the probes; phase 11's numbers under
 ``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
 view and a frame included, under ``backend``, phase 14's under
 ``methods``, phase 15's under ``data_viewer``, phase 16's under
-``process_data``, phase 17's under ``parallel``), the card's name and
+``process_data``, phase 17's under ``parallel``, phase 18's under
+``quality``), the card's name and
 power limit, and the last line ``{"ok":
 true, "device": {...}}``.
 Kernel times are torch.profiler's device time; a kernel it records no
@@ -298,7 +319,15 @@ from gstk_torch.scripts import export as export_cli
 from gstk_torch.scripts import render as render_cli
 from gstk_torch.scripts.process_data import main as process_data_main
 from gstk_torch.scripts.train import main as train_main
-from gstk_torch.tools import ablate_fwd, bench_dynrow, kernel_device_ms, make_mono_depth
+from gstk_torch.tools import (
+    ablate_fwd,
+    bench_dynrow,
+    convert_lpips_weights,
+    gen_raytraced_sharded,
+    kernel_device_ms,
+    make_mono_depth,
+    run_quality,
+)
 from gstk_torch.train.checkpoint import (
     latest_checkpoint,
     peek_meta,
@@ -394,6 +423,14 @@ EQ_H, EQ_W, EQ_VIEWS = 2048, 4096, 8
 # phase 17: gs-train's steps over a one-rank NCCL group; the two gloo
 # ranks' deadline; the 1080p frame's single-band intersection buffer
 PAR_ITERS, RANK_DEADLINE_S, TILE_ISECT = 100, 420, 1 << 22
+# phase 18: the sharded capture on the card and the CPU; the quality run's
+# seed cloud (enough intersections at 800x800 for the trainer to reach
+# 2^21 and split), headroom (460,000 seeds fill 0.877 of 2^19 lanes, past
+# the 0.85 growth threshold) and stretches; the one-band step's buffer
+Q_VIEWS, Q_SIDE, Q_SEEDS = 6, 160, 5000
+Q_POINTS, Q_JITTER, Q_HEADROOM = 460_000, 0.12, 1.0
+Q_STRETCHES, ONE_BAND_ISECT = (20, 40), 1 << 22
+VGG_LAYERS = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
 REPO = Path(__file__).resolve().parent
 
 
@@ -860,6 +897,7 @@ def run(ckpt_dir: str) -> int:
     data_numbers = data_viewer_phase(Path(ckpt_dir), counters)
     process_numbers = process_data_phase(Path(ckpt_dir), counters)
     parallel_numbers = parallel_phase(Path(ckpt_dir), counters, trainer_numbers)
+    quality_numbers = quality_phase(Path(ckpt_dir), counters)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -904,6 +942,7 @@ def run(ckpt_dir: str) -> int:
             "nccl_world1_run": parallel_numbers["launches"]["nccl_world1_run"][name],
             "ranks": [{path: n[name] for path, n in rank.items()}
                       for rank in parallel_numbers["launches"]["ranks"]]}
+        entry["launches_quality"] = quality_numbers["launches"][name]
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
@@ -924,6 +963,7 @@ def run(ckpt_dir: str) -> int:
                       "data_viewer": data_numbers,
                       "process_data": process_numbers,
                       "parallel": parallel_numbers,
+                      "quality": quality_numbers,
                       "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -931,17 +971,17 @@ def run(ckpt_dir: str) -> int:
     return 0
 
 
-def write_seed_cloud(data: Path, n: int) -> None:
+def write_seed_cloud(data: Path, n: int, jitter: float = SEED_JITTER) -> None:
     """Rewrite the dataset's ``sparse.ply`` with ``n`` seed points: each a
     point of the generator's own cloud, picked at random, moved by
-    N(0, SEED_JITTER) on each axis, with that point's color. The generator
+    N(0, jitter) on each axis, with that point's color. The generator
     writes the points of its object, as few as its fixed intersection
     buffer allows; the trainer starts from this cloud, at the size of
     phase 10's scene."""
     rng = np.random.default_rng(SEED)
     pts, rgb = read_ply_points(data / "sparse.ply")
     pick = rng.integers(0, len(pts), n)
-    xyz = (pts[pick] + rng.normal(0.0, SEED_JITTER, (n, 3))).astype(np.float32)
+    xyz = (pts[pick] + rng.normal(0.0, jitter, (n, 3))).astype(np.float32)
     write_ply(data / "sparse.ply", {"vertex": {
         "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
         "red": rgb[pick, 0], "green": rgb[pick, 1], "blue": rgb[pick, 2],
@@ -3165,6 +3205,213 @@ def rank_main(rank: int, world: int, io: Path) -> int:
     np.savez(io / f"out_{rank}.npz", **out)
     dist.destroy_process_group()
     return 0
+
+
+def quality_phase(work_dir: Path, counters) -> dict:
+    """Phase 18: the quality reference's capture, its recipe through
+    ``run_quality`` with capacity growth and bands, a multi-band step
+    against one band, gs-eval on the run and the LPIPS converter; the
+    counters reset just before the run and read just after."""
+    phase("18 quality path: the sharded capture, run_quality with growth "
+          "and bands, a multi-band step vs one band, gs-eval, the LPIPS "
+          "converter")
+    t0 = time.perf_counter()
+    capture = capture_check(work_dir)
+    run, trainer = quality_run(work_dir, counters)
+    bands = bands_check(trainer)
+    run["gs_eval"] = quality_eval(trainer)
+    converter = lpips_converter_check(work_dir)
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    loaded = [m for m in ("PIL", "cv2", "yaml") if m in sys.modules]
+    assert not loaded, f"phase 18 imported {loaded}"
+    wall_s = time.perf_counter() - t0
+    print(f"phase 18 wall time {wall_s:.1f} s")
+    return {"capture": capture, "run": run, "bands_step": bands,
+            "lpips_converter": converter, "launches": run.pop("launches"),
+            "wall_s": wall_s}
+
+
+def capture_check(work_dir: Path) -> dict:
+    """18(a): the sharded capture on the card and on the CPU, byte for
+    byte."""
+    argv = lambda out: ["--output-dir", str(out), "--n-views", str(Q_VIEWS),
+                        "--width", str(Q_SIDE), "--height", str(Q_SIDE),
+                        "--seed-points", str(Q_SEEDS)]
+    card, cpu = work_dir / "sharded_card", work_dir / "sharded_cpu"
+    card_s = synchronized_s(lambda: gen_raytraced_sharded.main(
+        argv(card) + ["--device", DEVICE]))
+    t0 = time.perf_counter()
+    gen_raytraced_sharded.main(argv(cpu) + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    files = sorted(p.relative_to(card) for p in card.rglob("*") if p.is_file())
+    assert len(files) == 2 * Q_VIEWS + 2, files
+    differ = [str(f) for f in files
+              if (card / f).read_bytes() != (cpu / f).read_bytes()]
+    n_seed = len(read_ply_points(card / "sparse.ply")[0])
+    print(f"sharded capture: {Q_VIEWS} views at {Q_SIDE}x{Q_SIDE} ss 3 in "
+          f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; {len(files)} "
+          f"files, {len(differ)} differ {differ}; seed cloud {n_seed} points")
+    assert not differ and n_seed == Q_SEEDS
+    return {"views": Q_VIEWS, "side": Q_SIDE, "card_s": card_s,
+            "cpu_s": cpu_s, "files": len(files), "files_differ": len(differ)}
+
+
+def quality_run(work_dir: Path, counters):
+    """18(b): ``run_quality`` in two stretches on 15(a)'s views with a
+    460,000-point seed cloud; returns its numbers and the second
+    stretch's trainer."""
+    data = work_dir / "quality_data"
+    shutil.copytree(work_dir / "raytraced", data)
+    write_seed_cloud(data, Q_POINTS, Q_JITTER)
+    runs = work_dir / "quality_runs"
+    trainers = []
+
+    def train(argv):
+        trainers.append(train_main(argv))
+        return 0
+
+    for f in counters:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for iters in Q_STRETCHES:
+        assert run_quality.main([
+            str(data), str(runs), "gaussian-splatting", str(iters),
+            "--device", DEVICE, "--initial-capacity-headroom", str(Q_HEADROOM),
+            "--model.num-downscales", "0"], train=train) == 0
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launches_of(counters)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    first, second = trainers
+    events = first.growth_events + second.growth_events
+    grew = [e for e in events if e[1].startswith("Growing Gaussian")]
+    isect = [e for e in events if e[1].startswith("Growing intersection")]
+    splits = [e for e in events if "splitting into" in e[1]]
+    rows = [json.loads(line) for line in
+            (second.config.run_dir / "metrics.jsonl").open()]
+    iter_ms = {}
+    for k, (s0, s1) in enumerate(zip((0,) + Q_STRETCHES, Q_STRETCHES)):
+        ms = [r["Train Iter (time)"] * 1e3 for r in rows
+              if "Train Iter (time)" in r and s0 + 10 <= r["step"] < s1]
+        iter_ms[f"stretch_{k + 1}"] = statistics.median(ms)
+    final = [r for r in rows if "eval_psnr" in r][-1]
+    losses_ = [r["loss"] for r in rows if "loss" in r]
+    print(f"run_quality: {Q_STRETCHES} steps ({run_s:.1f} s, two gs-train "
+          f"runs in process, the second resumed); events {events}; bands "
+          f"{first.raster_cfg.bands} -> {second.raster_cfg.bands}, capacity "
+          f"{second.state.scene.capacity}, intersection buffer "
+          f"{second.raster_cfg.isect_capacity}; ITER_TRAIN_TIME medians "
+          f"{iter_ms} ms; device peak {peak_mib:.1f} MiB; final eval PSNR "
+          f"{final['eval_psnr']:.4f} (step {final['step']}); launches "
+          f"{launches}")
+    assert all(math.isfinite(v) for v in losses_), "loss not finite"
+    start = run_quality.start_capacity(Q_POINTS, Q_HEADROOM)
+    assert len(grew) == 1 and grew[0][1].endswith(f"{start} -> {2 * start}"), grew
+    assert isect and splits and second.raster_cfg.bands >= 2, events
+    assert second.state.scene.capacity == 2 * start
+    assert int(second.state.step) == Q_STRETCHES[-1]
+    assert launches["composite_tiles_bwd"] == launches["segment_sum_sorted"]
+    assert launches["composite_tiles_fwd"] == launches["segment_broadcast"]
+    # one launch a band a step: more launches than steps once split
+    assert launches["composite_tiles_bwd"] > Q_STRETCHES[-1], launches
+    reduced = {
+        "views": "24 of 240 (phase 15's serial ss 3 capture at 800x800)",
+        "steps": f"{Q_STRETCHES[-1]} of 15000, in stretches {Q_STRETCHES}",
+        "num_downscales": "0 of 2: full resolution from step 0",
+        "seed_points": f"{Q_POINTS} (the capture's: 160,000): 15(a)'s "
+                       f"96,000 picked with repeats, jittered N(0, {Q_JITTER})",
+        "initial_capacity_headroom": f"{Q_HEADROOM} of 1.6"}
+    return {"run_s": run_s, "events": events, "launches": launches,
+            "bands": second.raster_cfg.bands,
+            "isect_capacity": second.raster_cfg.isect_capacity,
+            "capacity": second.state.scene.capacity, "iter_ms": iter_ms,
+            "peak_mib": peak_mib, "final_eval_psnr": final["eval_psnr"],
+            "final_eval_ssim": final["eval_ssim"], "reduced": reduced}, second
+
+
+def bands_check(trainer) -> dict:
+    """18(c): one train step in the trainer's bands through the kernels
+    against the same step in one band, from one state and one generator
+    state, with phase 10's tolerances."""
+    cfg = trainer.config
+    step = int(trainer.state.step)
+    sh = trainer._sh_degree(step)
+    multi = trainer.raster_cfg
+    one = dataclasses.replace(multi, bands=1, isect_capacity=ONE_BAND_ISECT)
+    idx, frame = trainer.datamanager.next_train()
+    inputs = trainer._train_inputs(idx, frame, 1)
+    before = train_state_to_numpy(trainer.state)
+    gen_state = trainer.generator.get_state()
+    outs = []
+    for rc in (multi, one):
+        fn = make_train_step(cfg.model, rc, cfg.optim, H, W, sh)
+        gen = torch.Generator(device=DEVICE)
+        gen.set_state(gen_state)
+        s, m = fn(train_state_from_numpy(before, DEVICE), *inputs[:2], gen,
+                  *inputs[2:])
+        torch.cuda.synchronize()
+        outs.append((train_state_to_numpy(s), m))
+    (got, m_b), (want, m_1) = outs
+    n_b, n_1 = int(m_b["num_intersects"]), int(m_1["num_intersects"])
+    print(f"step {step} in {multi.bands} bands (at most {n_b} intersections "
+          f"a band of {multi.isect_capacity}) vs one band ({n_1} of "
+          f"{ONE_BAND_ISECT}):", end=" ")
+    assert n_b <= multi.isect_capacity and n_1 <= ONE_BAND_ISECT
+    assert n_1 > n_b, "the bands do not split the intersections"
+    compare_steps(m_b, m_1, before, got, want, cfg.optim, step)
+    return {"bands": multi.bands, "band_intersections_max": n_b,
+            "one_band_intersections": n_1, "step": step,
+            "loss": float(m_b["loss"]), "loss_one_band": float(m_1["loss"])}
+
+
+def quality_eval(trainer) -> dict:
+    """18(d): gs-eval on the run's checkpoint against the trainer's final
+    eval, bit for bit."""
+    run_dir = trainer.config.run_dir
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").open()]
+    want = [r for r in rows if "eval_psnr" in r][-1]
+    res = eval_cli.main(["--load-config", str(run_dir / "config.yml"),
+                         "--output-path", str(run_dir / "eval.json"),
+                         "--skip-lpips", "--device", DEVICE])
+    got = res["results"]
+    print(f"gs-eval on the quality run: PSNR {got['psnr']!r} SSIM "
+          f"{got['ssim']!r} (checkpoint {res['checkpoint']}; the trainer's "
+          f"final eval: {want['eval_psnr']!r} / {want['eval_ssim']!r})")
+    assert res["checkpoint"] == str(Q_STRETCHES[-1])
+    assert got["psnr"] == want["eval_psnr"] and got["ssim"] == want["eval_ssim"]
+    return {"psnr": got["psnr"], "ssim": got["ssim"],
+            "views": got["num_images"]}
+
+
+def lpips_converter_check(work_dir: Path) -> dict:
+    """18(e): the converter on random VGG16 (torchvision layout) and LPIPS
+    head (lpips repo layout) state dicts; its self-test on the card against
+    the same on the CPU."""
+    rng = np.random.default_rng(SEED)
+    vgg = {}
+    for layer, (co, ci) in zip(VGG_LAYERS, convert_lpips_weights.VGG_CONVS):
+        vgg[f"{layer}.weight"] = torch.from_numpy(
+            rng.normal(0, 0.05, (co, ci, 3, 3)).astype(np.float32))
+        vgg[f"{layer}.bias"] = torch.from_numpy(
+            rng.normal(0, 0.05, co).astype(np.float32))
+    lin = {f"lin{j}.model.1.weight": torch.from_numpy(
+        rng.uniform(0, 1, (1, c, 1, 1)).astype(np.float32))
+        for j, c in enumerate(convert_lpips_weights.HEAD_WIDTHS)}
+    torch.save(vgg, work_dir / "vgg16.pth")
+    torch.save(lin, work_dir / "lpips_lin.pth")
+    argv = ["--vgg", str(work_dir / "vgg16.pth"), "--lpips",
+            str(work_dir / "lpips_lin.pth"), "--out",
+            str(work_dir / "lpips_vgg16.npz")]
+    t0 = time.perf_counter()
+    card = convert_lpips_weights.main(argv + ["--device", DEVICE])
+    card_s = time.perf_counter() - t0
+    cpu = convert_lpips_weights.main(argv + ["--device", "cpu"])
+    print(f"convert_lpips_weights: self-test {card!r} on the card "
+          f"({card_s:.2f} s), {cpu!r} on the CPU")
+    assert math.isfinite(card) and math.isclose(card, cpu, rel_tol=1e-4)
+    return {"self_test_card": card, "self_test_cpu": cpu, "card_s": card_s}
 
 
 def trace(label, fn, top: int = 8, show: tuple = ()) -> dict:

@@ -380,12 +380,15 @@ def camera_dirs(w: int, h: int, fx: float, cx: float, cy: float,
     return dirs
 
 
-def render_view(objs, c2w: np.ndarray, dirs: list, device=None):
+def render_view(objs, c2w: np.ndarray, dirs: list, device=None,
+                centre: bool = False):
     """Shade one view on ``device``: (rgb (N, 3) float64 in [0, 1], centre
     ray t (N,), hit (N,) bool, centre world directions (N, 3)), tensors on
     the device. ``dirs`` is :func:`camera_dirs`'s list; with more than one
     set, rgb is the box filter of the stratified sets and hit their
-    majority, and t stays the centre ray's.
+    majority, and t stays the centre ray's. With ``centre`` the tuple goes
+    on with the centre ray's own rgb and hit (the sharded capture's depth
+    mask and seed colours).
 
     The directions are rotated into the world on the host, by numpy's
     matrix product as in gstk_tpu: a box face on a checker boundary (the
@@ -406,6 +409,8 @@ def render_view(objs, c2w: np.ndarray, dirs: list, device=None):
             acc_hit += hit_all[k * n:(k + 1) * n].to(F64)
         rgb = acc / subs
         hit = acc_hit / subs >= 0.5
+    if centre:
+        return rgb, t, hit, d, rgb_all[:n], hit_all[:n]
     return rgb, t, hit, d
 
 

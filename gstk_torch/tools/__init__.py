@@ -1,5 +1,6 @@
 """Card probes: the counterparts of the Pallas probes under ``tools/``,
-and the port of ``tools/make_mono_depth.py``.
+the ports of ``tools/make_mono_depth.py`` and of the quality workflow's
+scripts.
 
 * :mod:`gstk_torch.tools.ablate_fwd` (P1) times clones of the compositing
   forward K1 with one part removed each (``csrc/ablate_fwd.cu``);
@@ -15,6 +16,17 @@ they and ``chip_smoke.py`` share.
 :mod:`gstk_torch.tools.make_mono_depth` writes the mono-depth variant of a
 raytraced dataset (host numpy; ``python -m gstk_torch.tools.make_mono_depth
 --data <dir> --out <dir>``).
+
+The quality workflow, each on the card unless given ``--device cpu``:
+:mod:`~gstk_torch.tools.gen_raytraced_sharded` (the band-limited 240-view
+capture), :mod:`~gstk_torch.tools.run_quality` (the 15k recipe, resumable),
+:mod:`~gstk_torch.tools.summarize_run` (a run's report),
+:mod:`~gstk_torch.tools.analyze_gt_aliasing` and
+:mod:`~gstk_torch.tools.eval_vs_supersampled` (the ceiling analysis),
+:mod:`~gstk_torch.tools.convert_lpips_weights` (LPIPS weights to ``.npz``),
+:mod:`~gstk_torch.tools.quality_workflow` (all of it in one call, with a
+report) and :mod:`~gstk_torch.tools.tpu_precision_probe` (the recipe with
+a TPU's default matmul rounding emulated).
 """
 
 from __future__ import annotations

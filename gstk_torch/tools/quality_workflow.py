@@ -1,0 +1,261 @@
+"""The reference's quality workflow end to end, and its report: the
+band-limited capture (:mod:`gstk_torch.tools.gen_raytraced_sharded`), the
+15k recipe (:mod:`gstk_torch.tools.run_quality`) in two resumed stretches,
+gs-eval after each, the trainer's summary
+(:mod:`gstk_torch.tools.summarize_run`), the per-ring table, the ceiling
+analysis (:mod:`gstk_torch.tools.analyze_gt_aliasing` and
+:mod:`gstk_torch.tools.eval_vs_supersampled`) and one counted train step
+from the final checkpoint (K1-K4 launches a step at the run's last band
+count).
+
+Everything goes under ``--work-dir``; what a report needs (the gs-eval
+JSONs, ``metrics.jsonl``, the trainer's log, ``report.md`` and
+``quality.json``, whose last copy is also printed) under ``--out-dir``.
+Both stretches always run; a call cut short leaves checkpoints that
+:mod:`gstk_torch.tools.run_quality` resumes from.
+
+Usage (on the card):
+  python -m gstk_torch.tools.quality_workflow --out-dir runs/quality/report
+CPU rehearsal at a small size:
+  python -m gstk_torch.tools.quality_workflow --device cpu --n-views 24 \\
+      --width 64 --height 64 --seed-points 2000 --iters 40 \\
+      --first-stretch 20 -- --isect-capacity 16384
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from gstk_torch.tools import run_quality
+from gstk_torch.tools.gen_raytraced_sharded import generate_sharded_dataset
+
+EVAL_INTERVAL = 8  # the recipe's eval split
+GROWTH = re.compile(r"^step (\d+): (.*)$")
+
+
+def _python_m(module: str, argv: List[str], log: Optional[Path] = None) -> int:
+    """``python -m module argv`` with the package importable; its output
+    appended to ``log`` when given."""
+    env = run_quality.child_env()
+    cmd = [sys.executable, "-m", module, *argv]
+    if log is None:
+        return subprocess.call(cmd, env=env)
+    with open(log, "a") as f:
+        return subprocess.call(cmd, env=env, stdout=f,
+                               stderr=subprocess.STDOUT)
+
+
+def _lanes(events: List, start: int) -> List:
+    """(first step, lanes) spans from the capacity growths."""
+    spans = [(0, start)]
+    for step, msg in events:
+        m = re.match(r"Growing Gaussian capacity (\d+) -> (\d+)", msg)
+        if m:
+            spans.append((step + 1, int(m.group(2))))
+    return spans
+
+
+def _iter_ms_by_lanes(rows: List[Dict], spans: List) -> Dict[int, dict]:
+    """Median ``ITER_TRAIN_TIME`` (ms) of the log windows at each capacity,
+    the windows that hold a growth or a stretch's first steps left out."""
+    train = [r for r in rows if "Train Iter (time)" in r]
+    firsts = {train[0]["step"]}
+    firsts |= {b["step"] for a, b in zip(train, train[1:])
+               if b["step"] <= a["step"]}  # a resumed stretch restarts
+    out = {}
+    for k, (s0, lanes) in enumerate(spans):
+        s1 = spans[k + 1][0] if k + 1 < len(spans) else float("inf")
+        ms = [r["Train Iter (time)"] * 1e3 for r in train
+              if s0 + 10 <= r["step"] < s1 and r["step"] not in firsts]
+        if ms:
+            out[lanes] = {"median_ms": statistics.median(ms),
+                          "min_ms": min(ms), "max_ms": max(ms),
+                          "windows": len(ms), "steps": [s0, min(s1, train[-1]["step"] + 1)]}
+    return out
+
+
+def rings(per_view: List[float]) -> dict:
+    """Mean PSNR of each ring (frame index mod 3) and the lowest view."""
+    arr = np.asarray(per_view, np.float64)
+    ring = (np.arange(len(arr)) * EVAL_INTERVAL) % 3
+    return {"ring_means": [float(arr[ring == r].mean()) for r in range(3)],
+            "min_view": float(arr.min()), "min_view_index": int(arr.argmin()),
+            "mean": float(arr.mean())}
+
+
+def counted_steps(argv: List[str], steps: int) -> dict:
+    """Train ``steps`` steps in this process from the run's last
+    checkpoint (``argv`` resumes it), the evals off, and count K1-K4."""
+    from gstk_torch.ops import raster_cuda, segment_kernel
+    from gstk_torch.scripts.train import main as train_main
+    from gstk_torch.train.trainer import Trainer
+
+    wrappers = (raster_cuda.composite_tiles_fwd,
+                raster_cuda.composite_tiles_bwd,
+                segment_kernel.segment_broadcast,
+                segment_kernel.segment_sum_sorted)
+    for f in wrappers:
+        f.launches = 0
+    eval_all = Trainer.eval_all
+    Trainer.eval_all = lambda self, step: {}
+    try:
+        trainer = train_main(argv)
+    finally:
+        Trainer.eval_all = eval_all
+    return {"steps": steps, "bands": trainer.raster_cfg.bands,
+            "isect_capacity": trainer.raster_cfg.isect_capacity,
+            "capacity": trainer.state.scene.capacity,
+            "launches": {f.__name__: f.launches for f in wrappers}}
+
+
+def main(argv=None) -> dict:
+    argv, extra = run_quality.split_extra(argv)
+    ap = argparse.ArgumentParser("quality_workflow")
+    ap.add_argument("--work-dir", type=Path, default=Path("runs/quality"))
+    ap.add_argument("--out-dir", type=Path, default=Path("runs/quality/report"))
+    ap.add_argument("--method", default="gaussian-splatting")
+    ap.add_argument("--iters", type=int, default=15000)
+    ap.add_argument("--first-stretch", type=int, default=7500)
+    ap.add_argument("--n-views", type=int, default=240)
+    ap.add_argument("--width", type=int, default=800)
+    ap.add_argument("--height", type=int, default=800)
+    ap.add_argument("--seed-points", type=int, default=160_000)
+    ap.add_argument("--supersample", type=int, default=3)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    dev = [] if args.device is None else ["--device", args.device]
+    out = args.out_dir
+    out.mkdir(parents=True, exist_ok=True)
+    log = out / "train.log"
+    log.write_text("")
+    report: Dict = {"extra_flags": extra}
+    if args.device in (None, "cuda"):
+        report["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip()
+        print(report["card"], flush=True)
+
+    data = args.work_dir / "raytraced240_ss3"
+    t0 = time.perf_counter()
+    generate_sharded_dataset(
+        data, args.n_views, (args.width, args.height), args.seed_points,
+        args.supersample, device=args.device)
+    report["capture_s"] = time.perf_counter() - t0
+    print(f"capture: {args.n_views} views at {args.width}x{args.height} "
+          f"ss {args.supersample} in {report['capture_s']:.1f} s", flush=True)
+
+    runs = args.work_dir / "runs"
+    run_dir = run_quality.run_dir(data, runs, args.method)
+    cfg = run_dir / "config.yml"
+    train = lambda a: _python_m("gstk_torch.scripts.train", a, log)
+    stretches, evals = [], {}
+    for iters in (args.first_stretch, args.iters):
+        t0 = time.perf_counter()
+        rc = run_quality.main(
+            [str(data), str(runs), args.method, str(iters), *dev, "--",
+             *extra], train=train)
+        wall = time.perf_counter() - t0
+        if rc:
+            raise SystemExit(f"gs-train failed (rc {rc}); see {log}")
+        stretches.append({"iters": iters, "wall_s": wall})
+        print(f"stretch to step {iters}: {wall:.1f} s", flush=True)
+        eval_json = out / f"eval_{iters}.json"
+        t0 = time.perf_counter()
+        if _python_m("gstk_torch.scripts.eval", [
+                "--load-config", str(cfg), "--output-path", str(eval_json),
+                "--skip-lpips", *dev]):
+            raise SystemExit("gs-eval failed")
+        evals[iters] = json.loads(eval_json.read_text())
+        evals[iters]["wall_s"] = time.perf_counter() - t0
+    report["stretches"] = stretches
+    final = stretches[-1]["iters"]
+    shutil.copy(run_dir / "metrics.jsonl", out / "metrics.jsonl")
+    rows = [json.loads(l) for l in (run_dir / "metrics.jsonl").open()
+            if l.strip()]
+
+    # gs-eval against the trainer's own final eval (gs-train's eval_all
+    # after the last step), and the per-ring table
+    report["evals"] = {}
+    for iters, ev in evals.items():
+        trained = [r for r in rows if "eval_psnr" in r and r["step"] == iters]
+        res = ev["results"]
+        entry = {"psnr": res["psnr"], "ssim": res["ssim"],
+                 "gs_eval_s": ev["wall_s"],
+                 **rings(ev["per_image"]["psnr"])}
+        if trained:
+            entry["trainer_psnr"] = trained[-1]["eval_psnr"]
+            entry["trainer_ssim"] = trained[-1]["eval_ssim"]
+            entry["bit_for_bit"] = (res["psnr"] == trained[-1]["eval_psnr"]
+                                    and res["ssim"] == trained[-1]["eval_ssim"])
+        report["evals"][iters] = entry
+    shutil.copy(out / f"eval_{final}.json", out / "eval_240_ss3_torch.json")
+
+    text = log.read_text()
+    events = [(int(m.group(1)), m.group(2)) for m in
+              (GROWTH.match(l) for l in text.splitlines()) if m]
+    report["growth_events"] = events
+    report["device_peak_mib"] = [float(x) for x in re.findall(
+        r"Device peak ([0-9.]+) MiB", text)]
+    report["train_done"] = re.findall(r"Training done in ([0-9.]+) min", text)
+    n_seed = rows[0]["num_alive"]
+    start_lanes = run_quality.start_capacity(int(n_seed))
+    report["iter_ms_by_lanes"] = _iter_ms_by_lanes(
+        rows, _lanes(events, start_lanes))
+    alive = [r for r in rows if "num_alive" in r]
+    report["alive_end"] = alive[-1]["num_alive"]
+    report["num_intersects_max"] = max(r.get("num_intersects", 0) for r in rows)
+
+    # one counted stretch of 2 steps from the final checkpoint
+    probe = args.work_dir / "probe"
+    shutil.rmtree(probe, ignore_errors=True)
+    report["counted"] = counted_steps(
+        [*dev, *run_quality.recipe_flags(data, probe, args.method, final + 2),
+         "--load-dir", str(run_dir / "ckpts"), "--steps-per-save", "0",
+         "--steps-per-eval-image", "0", "--steps-per-eval-all-images", "0",
+         *extra], 2)
+
+    # the ceiling analysis on the eval views, against the final gs-eval
+    gts = args.work_dir / "gtS_eval.npz"
+    from gstk_torch.tools import analyze_gt_aliasing, eval_vs_supersampled
+
+    t0 = time.perf_counter()
+    ceil_rows = analyze_gt_aliasing.main([
+        str(args.supersample), "--save", "--eval-json",
+        str(out / "eval_240_ss3_torch.json"), "--save-path", str(gts),
+        "--n-views", str(args.n_views), "--width", str(args.width),
+        "--height", str(args.height),
+        "--eval-views", str(len(evals[final]["per_image"]["psnr"])),
+        *dev])
+    report["ceiling"] = {"s": time.perf_counter() - t0, **rings(
+        [r[3] for r in ceil_rows])}
+    vs = eval_vs_supersampled.main([
+        str(cfg), "--gts", str(gts), "--out", str(out / "eval_vs_ss.json"),
+        *dev])
+    report["vs_supersampled"] = {k: v for k, v in vs.items()
+                                 if k != "per_image"}
+
+    from gstk_torch.tools.summarize_run import report as summary
+
+    (out / "report.md").write_text(summary(run_dir))
+    report["wall_s"] = time.perf_counter() - t_start
+    (out / "quality.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps(report))
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,190 @@
+"""The quality recipe with a TPU's default f32 matmul rounding emulated in
+chosen products: does it explain gstk_tpu's published quality on the
+band-limited capture?
+
+A TPU runs an f32 ``jnp.dot`` / ``@`` / ``einsum`` at JAX's default
+precision as one bfloat16 pass: each operand is rounded to bfloat16 and
+the products are summed in f32. gstk_tpu forces full precision in its
+rasterizer and SSIM, but not in two places of the training step:
+
+  * ``cameras``: ``core/cameras.py::camera_matrices``, ``t_inv = -R_inv @
+    t`` (``tinv`` alone) and ``fullmat = projmat @ viewmat`` (``fullmat``
+    alone), which place every Gaussian's centre on the screen;
+  * ``sh``: ``ops/sh.py::spherical_harmonics``, the colour's einsum of the
+    SH bases and coefficients.
+
+This script replaces those products in the port with the same rounding
+(``torch.bfloat16`` round-to-nearest-even operands, f32 products and sums),
+makes the capture (:mod:`gstk_torch.tools.gen_raytraced_sharded`) unless
+``--work-dir`` has it, runs :mod:`gstk_torch.tools.run_quality` in this
+process, and scores the run with gs-eval twice: with the rounding (as
+gs-eval on a TPU would) and without it. It also prints, for the capture's
+train cameras at full resolution, how far the rounded ``fullmat`` moves
+the seed points on the screen.
+
+Usage:
+  python -m gstk_torch.tools.tpu_precision_probe --rounded cameras \\
+      --out-dir runs/probe [--iters 15000] [--device cpu] [-- flags]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+from typing import List
+
+import numpy as np
+import torch
+
+from gstk_torch.core import cameras
+from gstk_torch.models import vanilla
+from gstk_torch.ops import sh
+from gstk_torch.tools import run_quality
+from gstk_torch.tools.gen_raytraced_sharded import generate_sharded_dataset
+from gstk_torch.tools.quality_workflow import rings
+from gstk_torch.utils.math import projection_matrix
+
+_exact = {"cameras": vanilla.camera_matrices, "sh": vanilla.spherical_harmonics}
+
+
+def bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16, back in f32: a default-precision MXU
+    operand."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def rounded_camera_matrices(camera, img_height: int, img_width: int,
+                            products=("tinv", "fullmat")):
+    """``camera_matrices`` with ``products`` at TPU default precision."""
+    rt = bf16 if "tinv" in products else (lambda x: x)
+    rf = bf16 if "fullmat" in products else (lambda x: x)
+    flip = torch.tensor([1.0, -1.0, -1.0], dtype=camera.c2w.dtype,
+                        device=camera.c2w.device)
+    R = camera.c2w[:3, :3] * flip[None, :]
+    t = camera.c2w[:3, 3:4]
+    R_inv = R.T
+    t_inv = -(rt(R_inv) @ rt(t))
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype,
+                          device=R.device)
+    viewmat = torch.cat([torch.cat([R_inv, t_inv], dim=1), bottom], dim=0)
+    fovx = 2.0 * torch.atan(0.5 * img_width / camera.fx)
+    fovy = 2.0 * torch.atan(0.5 * img_height / camera.fy)
+    projmat = projection_matrix(0.001, 1000.0, fovx, fovy)
+    return viewmat, rf(projmat) @ rf(viewmat)
+
+
+def rounded_spherical_harmonics(degree: int, viewdirs, coeffs):
+    """``spherical_harmonics`` with its einsum at TPU default precision."""
+    basis_dim = sh.num_sh_bases(degree)
+    bases = sh.eval_sh_bases(basis_dim, viewdirs.detach())
+    return torch.einsum("...k,...kc->...c", bf16(bases),
+                        bf16(coeffs[..., :basis_dim, :]))
+
+
+def set_rounding(parts: List[str]) -> None:
+    products = tuple(p for p in ("tinv", "fullmat")
+                     if p in parts or "cameras" in parts)
+    vanilla.camera_matrices = (
+        (lambda c, h, w: rounded_camera_matrices(c, h, w, products))
+        if products else _exact["cameras"])
+    vanilla.spherical_harmonics = (rounded_spherical_harmonics
+                                   if "sh" in parts else _exact["sh"])
+
+
+def screen_shift(data: Path, size: int, products) -> dict:
+    """Pixels by which rounding ``products`` moves the seed points that
+    the exact ``fullmat`` puts on the screen, over the train cameras at
+    ``size`` x ``size``: the median and the largest per camera."""
+    from gstk_torch.data.dataparser import DataparserConfig, parse_transforms
+
+    out = parse_transforms(DataparserConfig(data=data, eval_mode="interval",
+                                            eval_interval=8), "train")
+    pts = torch.from_numpy(out.points3d_xyz.astype(np.float32))
+    hom = torch.cat([pts, torch.ones(len(pts), 1)], dim=1).double()
+    scale = size / float(out.widths[0])
+    med, worst = [], []
+    for i in range(len(out.poses)):
+        cam = cameras.Camera.create(out.fx[i] * scale, out.fy[i] * scale,
+                                    out.cx[i] * scale, out.cy[i] * scale,
+                                    out.poses[i])
+        pix = []
+        for fn in (_exact["cameras"],
+                   lambda c, h, w: rounded_camera_matrices(c, h, w, products)):
+            ph = fn(cam, size, size)[1].double() @ hom.T
+            pix.append(torch.stack([0.5 * size * ph[0] / (ph[3] + 1e-6),
+                                    0.5 * size * ph[1] / (ph[3] + 1e-6)]))
+        on = ((pix[0] > -0.5 * size) & (pix[0] < 0.5 * size)).all(0)
+        d = (pix[0] - pix[1]).abs().amax(0)[on]
+        med.append(float(d.median()))
+        worst.append(float(d.max()))
+    return {"median_px": float(np.median(med)), "max_px": max(worst),
+            "cameras": len(med)}
+
+
+def main(argv=None) -> dict:
+    argv, extra = run_quality.split_extra(argv)
+    ap = argparse.ArgumentParser("tpu_precision_probe")
+    ap.add_argument("--rounded", default="cameras",
+                    help="comma-separated: cameras (tinv and fullmat), "
+                         "tinv, fullmat, sh")
+    ap.add_argument("--work-dir", type=Path, default=Path("runs/probe"))
+    ap.add_argument("--out-dir", type=Path, default=Path("runs/probe/report"))
+    ap.add_argument("--iters", type=int, default=15000)
+    ap.add_argument("--n-views", type=int, default=240)
+    ap.add_argument("--size", type=int, default=800)
+    ap.add_argument("--seed-points", type=int, default=160_000)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+    parts = [p for p in args.rounded.split(",") if p]
+    if not set(parts) <= {"cameras", "tinv", "fullmat", "sh"}:
+        ap.error(f"--rounded: unknown part in {parts}")
+    dev = [] if args.device is None else ["--device", args.device]
+    from gstk_torch.scripts import eval as eval_cli
+    from gstk_torch.scripts.train import main as train_main
+
+    t0 = time.perf_counter()
+    data = args.work_dir / "raytraced240_ss3"
+    if not (data / "transforms.json").exists():
+        generate_sharded_dataset(data, args.n_views, (args.size, args.size),
+                                 args.seed_points, device=args.device)
+    products = [p for p in ("tinv", "fullmat") if p in parts or "cameras" in parts]
+    report = {"rounded": parts,
+              "screen_shift": screen_shift(data, args.size, products)}
+    print(f"rounded {products} vs exact: {report['screen_shift']}", flush=True)
+
+    name = "_".join(parts) or "exact"
+    runs = args.work_dir / f"runs_{name}"
+    set_rounding(parts)
+    try:
+        rc = run_quality.main(
+            [str(data), str(runs), "gaussian-splatting", str(args.iters),
+             *dev, "--", *extra], train=lambda a: 0 if train_main(a) else 1)
+        if rc:
+            raise SystemExit(f"gs-train failed (rc {rc})")
+        cfg = run_quality.run_dir(data, runs, "gaussian-splatting") / "config.yml"
+        args.out_dir.mkdir(parents=True, exist_ok=True)
+        for label, on in (("rounded", parts), ("exact", [])):
+            set_rounding(on)
+            res = eval_cli.main(["--load-config", str(cfg), "--output-path",
+                                 str(args.out_dir / f"eval_{name}_{label}.json"),
+                                 "--skip-lpips", *dev])
+            report[f"eval_{label}"] = {
+                **{k: res["results"][k] for k in ("psnr", "ssim")},
+                **rings(res["per_image"]["psnr"])}
+    finally:
+        set_rounding([])
+    rows = [json.loads(l) for l in (cfg.parent / "metrics.jsonl").open()]
+    report["trainer_evals"] = [(r["step"], r["eval_psnr"], r["eval_ssim"])
+                               for r in rows if "eval_psnr" in r]
+    report["alive_end"] = [r["num_alive"] for r in rows if "num_alive" in r][-1]
+    report["wall_s"] = time.perf_counter() - t0
+    (args.out_dir / f"probe_{name}.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps(report))
+    return report
+
+
+if __name__ == "__main__":
+    main()

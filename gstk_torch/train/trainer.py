@@ -289,6 +289,8 @@ class Trainer:
         # metrics fetch: growth sees the window's peak, so a spike on a
         # step that is not logged still grows the buffer
         self._isect_window: list = []
+        # (step, message) of each capacity growth, band split and merge
+        self.growth_events: list = []
         self._step_cache: Dict = {}
         self._dev_cache: Dict = {}
         # one process, one rank, until setup joins a process group
@@ -600,13 +602,20 @@ class Trainer:
             cam_adam=state.cam_adam,
         ))
 
-    def _maybe_grow(self, metrics: Dict) -> None:
+    def _grown(self, step: Optional[int], message: str) -> None:
+        """Print a growth ``message``, with the step it follows when known,
+        and keep it in ``growth_events`` as (step, message)."""
+        self.growth_events.append((step, message))
+        print(message if step is None else f"step {step}: {message}")
+
+    def _maybe_grow(self, metrics: Dict, step: Optional[int] = None) -> None:
         """gstk_tpu's growth policy on fetched counts: Gaussian capacity x
         ``capacity_growth`` (rounded to a power of two, at most
         ``max_capacity``) past 0.85 of it; the intersection buffer to the
         next 3-bit-mantissa bucket with 1.2x headroom past 0.9 of it, up to
         2^21, then one more band; a band merged back when the per-band load
-        would stay under 0.6 of the buffer."""
+        would stay under 0.6 of the buffer. ``step``: the step whose
+        metrics these are, for the messages."""
         cfg = self.config
         num_alive = int(metrics.get("num_alive", 0))
         cap = self._capacity()
@@ -623,7 +632,7 @@ class Trainer:
                     )
                     self._cap_warned = True
             else:
-                print(f"Growing Gaussian capacity {cap} -> {new_cap}")
+                self._grown(step, f"Growing Gaussian capacity {cap} -> {new_cap}")
                 with timer("grow_capacity"):
                     self._grow_capacity(new_cap)
         n_isect = int(metrics.get("num_intersects", 0))
@@ -631,8 +640,8 @@ class Trainer:
             max_cap = 1 << 21
             new_isect = min(_round_up_bucket(int(n_isect * 1.2) + 1), max_cap)
             if new_isect > self.raster_cfg.isect_capacity:
-                print(
-                    f"Growing intersection capacity "
+                self._grown(
+                    step, f"Growing intersection capacity "
                     f"{self.raster_cfg.isect_capacity} -> {new_isect}"
                 )
                 self.raster_cfg = dataclasses.replace(
@@ -640,10 +649,10 @@ class Trainer:
                 )
             else:
                 new_bands = max(self.raster_cfg.bands, 1) + 1
-                print(
-                    f"Intersections ({n_isect}) near the sort ceiling at "
-                    f"capacity {self.raster_cfg.isect_capacity}; splitting "
-                    f"into {new_bands} rasterization bands"
+                self._grown(
+                    step, f"Intersections ({n_isect}) near the sort ceiling "
+                    f"at capacity {self.raster_cfg.isect_capacity}; "
+                    f"splitting into {new_bands} rasterization bands"
                 )
                 self.raster_cfg = dataclasses.replace(
                     self.raster_cfg, bands=new_bands
@@ -657,8 +666,8 @@ class Trainer:
             # merging only under 0.6 of the buffer (against the 0.9 growth
             # trigger) keeps a post-reset spike from oscillating the count.
             new_bands = self.raster_cfg.bands - 1
-            print(
-                f"Intersections ({n_isect}/band) well under budget; "
+            self._grown(
+                step, f"Intersections ({n_isect}/band) well under budget; "
                 f"merging to {new_bands} rasterization band(s)"
             )
             self.raster_cfg = dataclasses.replace(
@@ -705,7 +714,7 @@ class Trainer:
                 )
                 self.writer.put_scalar(EventName.ITER_TRAIN_TIME, dt, step)
                 self.writer.write_out_storage()
-                self._maybe_grow(self._drain_isect_window(metrics_host))
+                self._maybe_grow(self._drain_isect_window(metrics_host), step)
                 sharded_view = cfg.vis == "viewer" and self.gauss_mesh is not None
                 scene = (self._full_state().scene if sharded_view
                          else self.state.scene)
@@ -728,7 +737,13 @@ class Trainer:
 
         self._save_checkpoint()
         total = time.time() - t_start
-        print(f"Training done in {total / 60:.1f} min. {PROFILER.report()}")
+        peak = ""
+        if self.device.type == "cuda":
+            peak = (f" Device peak "
+                    f"{torch.cuda.max_memory_allocated(self.device) / 2**20:.1f}"
+                    f" MiB.")
+        print(f"Training done in {total / 60:.1f} min.{peak} "
+              f"{PROFILER.report()}")
 
     def _save_checkpoint(self) -> None:
         """Rank 0 writes the (whole) state."""

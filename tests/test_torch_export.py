@@ -258,7 +258,9 @@ def test_clean_mesh_drops_small_components():
 
 # -- masks -------------------------------------------------------------------
 
-def test_mask_fallbacks_match_jax(rng):
+def test_mask_fallbacks_match_jax(rng, monkeypatch):
+    # "fake" stays out of the shared registry
+    monkeypatch.setattr(tmask, "_MASK_MODELS", dict(tmask._MASK_MODELS))
     imgs = [rng.uniform(0, 1, (16, 20, 3)).astype(np.float32)] * 2
     accs = [rng.uniform(0, 1, (16, 20)).astype(np.float32)] * 2
     for kw in (dict(method="threshold", accumulations=accs),

@@ -86,7 +86,9 @@ def _same_depths(got, want):
         np.testing.assert_array_equal(da, db)
 
 
-def test_estimate_depths_placeholder_and_custom(tmp_path, rng):
+def test_estimate_depths_placeholder_and_custom(tmp_path, rng, monkeypatch):
+    for mod in (jmono, tmono):  # "wave" stays out of the shared registries
+        monkeypatch.setattr(mod, "_DEPTH_MODELS", dict(mod._DEPTH_MODELS))
     imgs = _images(tmp_path / "images", rng, 3)
     want = jmono.estimate_depths(imgs, tmp_path / "j", method="gradient",
                                  allow_toy=True)
@@ -153,9 +155,13 @@ def test_estimate_depths_auto_needs_a_model(tmp_path, rng, monkeypatch):
                                             method="auto", allow_toy=True))
 
 
-def test_local_dpt_matches_jax(tmp_path, rng):
+def test_local_dpt_matches_jax(tmp_path, rng, monkeypatch):
     """A local transformers DPT checkpoint with random tiny weights: the
-    port runs it on the device it is given and writes what gstk_tpu writes."""
+    port runs it on the device it is given and writes what gstk_tpu writes.
+    Both registries are copies here: a "local_dpt" left in gstk_tpu's would
+    make its ``auto`` take it in later tests."""
+    for mod in (jmono, tmono):
+        monkeypatch.setattr(mod, "_DEPTH_MODELS", dict(mod._DEPTH_MODELS))
     transformers = pytest.importorskip("transformers")
     cfg = transformers.DPTConfig(
         hidden_size=32, num_hidden_layers=4, num_attention_heads=2,

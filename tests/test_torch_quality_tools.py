@@ -1,0 +1,472 @@
+"""The port's quality workflow (``gstk_torch/tools/{gen_raytraced_sharded,
+run_quality,summarize_run,analyze_gt_aliasing,eval_vs_supersampled,
+convert_lpips_weights}.py``, ``gstk_torch/examples/train_synthetic.py``)
+against the reference's ``tools/`` and ``examples/`` scripts on the CPU,
+at a small size.
+
+Tolerances:
+  * the sharded capture (6 views at 48x48, ss 2, 3 workers, 5000 seed
+    points out of a larger pool) equal to ``tools/gen_raytraced_sharded.py``
+    bit for bit: decoded PNGs (the reference writes them with Pillow, the
+    port with its own writer), ``transforms.json`` and ``sparse.ply`` bytes;
+  * the LPIPS converter's ``.npz`` equal array for array, its self-test
+    value within rtol 1e-4 of the JAX one, and the same ``SystemExit``
+    message on a wrong shape;
+  * ``summarize_run`` and the recipe's flags equal as text;
+  * the ceiling analysis per view within rtol 1e-9 (float64 shading on
+    both sides), the supersampled GTs within 1e-12; the scores against
+    them as gs-eval's parity tests hold them: PSNR rtol 1e-4, SSIM atol
+    1e-4;
+  * the demo's printed losses and PSNRs equal (four decimals).
+"""
+
+import importlib.util
+import json
+import os
+import re
+import shlex
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gstk_torch.data import raytraced as trt
+from gstk_torch.tools import (
+    analyze_gt_aliasing,
+    convert_lpips_weights,
+    eval_vs_supersampled,
+    gen_raytraced_sharded,
+    run_quality,
+    summarize_run,
+)
+from gstk_torch.utils.io import read_png
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+CAPTURE = dict(n_views=6, width=48, height=48, seed_points=5000,
+               supersample=2, workers=3)
+TRAIN_FLAGS = [  # small and fast on the CPU, after the recipe's flags
+    "--isect-capacity", "8192", "--raster-chunk", "16",
+    "--model.sh-degree", "1", "--model.warmup-length", "5",
+    "--model.refine-every", "5", "--steps-per-eval-image", "0",
+    "--steps-per-eval-all-images", "0", "--steps-per-save", "10",
+    "--log-every", "5", "--dataparser.eval-interval", "3",
+]
+
+
+def _reference(name: str):
+    """A reference script under ``tools/`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"_ref_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _capture_argv(out: Path) -> list:
+    return ["--output-dir", str(out),
+            *(a for k, v in CAPTURE.items()
+              for a in (f"--{k.replace('_', '-')}", str(v)))]
+
+
+@pytest.fixture(scope="module")
+def captures(tmp_path_factory):
+    """The reference tool's capture (a subprocess, as its users run it)
+    and the port's, on the CPU."""
+    root = tmp_path_factory.mktemp("capture")
+    subprocess.run([sys.executable, str(REPO / "tools" /
+                                        "gen_raytraced_sharded.py"),
+                    *_capture_argv(root / "ref")], check=True, cwd=root,
+                   capture_output=True)
+    gen_raytraced_sharded.main([*_capture_argv(root / "port"),
+                                "--device", "cpu"])
+    return root / "ref", root / "port"
+
+
+def test_sharded_capture_matches_reference(captures):
+    ref, port = captures
+    for sub in ("images", "depths"):
+        names = sorted(p.name for p in (ref / sub).iterdir())
+        assert names == sorted(p.name for p in (port / sub).iterdir())
+        assert len(names) == CAPTURE["n_views"]
+        for name in names:
+            a, b = read_png(ref / sub / name), read_png(port / sub / name)
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(b, a, err_msg=f"{sub}/{name}")
+    for name in ("transforms.json", "sparse.ply"):
+        assert (port / name).read_bytes() == (ref / name).read_bytes(), name
+    # the pool was larger than the seed count: default_rng(0) picked
+    n = json.loads((port / "transforms.json").read_text())
+    assert len(n["frames"]) == CAPTURE["n_views"]
+    head = (port / "sparse.ply").read_bytes()[:200].decode("latin-1")
+    assert f"element vertex {CAPTURE['seed_points']}" in head
+
+
+def test_serial_generator_writes_another_seed_cloud(captures, tmp_path):
+    """The serial generator's images are the sharded tool's, its seed cloud
+    is not (one rng for every view, supersampled colours and hit mask)."""
+    _, port = captures
+    serial = trt.generate_raytraced_dataset(
+        tmp_path / "serial", CAPTURE["n_views"],
+        (CAPTURE["width"], CAPTURE["height"]), CAPTURE["seed_points"],
+        supersample=CAPTURE["supersample"], device="cpu")
+    for p in sorted((port / "images").iterdir()):
+        np.testing.assert_array_equal(read_png(serial / "images" / p.name),
+                                      read_png(p))
+    assert ((serial / "sparse.ply").read_bytes()
+            != (port / "sparse.ply").read_bytes())
+
+
+@pytest.mark.parametrize("ss", [1, 3])
+def test_render_view_default_unchanged(ss):
+    """The default four outputs, bit for bit, with and without the
+    centre ray's; the centre ray's own rgb and hit are the ss-1 render."""
+    objs = trt.build_scene()
+    c2w = trt.view_pose(4, 12)
+    fx = 0.5 * 24 / np.tan(np.radians(40.0) / 2)
+    dirs = trt.camera_dirs(24, 20, fx, 12.0, 10.0, ss)
+    plain = trt.render_view(objs, c2w, dirs, "cpu")
+    assert len(plain) == 4
+    both = trt.render_view(objs, c2w, dirs, "cpu", centre=True)
+    for a, b in zip(plain, both[:4]):
+        assert torch.equal(a, b)
+    rgb1, _, hit1, _ = trt.render_view(objs, c2w, dirs[:1], "cpu")
+    assert torch.equal(both[4], rgb1) and torch.equal(both[5], hit1)
+    if ss == 1:
+        assert torch.equal(plain[0], rgb1)
+    else:
+        assert not torch.equal(plain[0], rgb1)
+
+
+# -- LPIPS converter ------------------------------------------------------
+
+VGG_LAYERS = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+
+
+def _vgg_state(rng, bad: int = -1) -> dict:
+    state = {}
+    for i, (layer, (co, ci)) in enumerate(zip(
+            VGG_LAYERS, convert_lpips_weights.VGG_CONVS)):
+        shape = (co, ci, 3, 3) if i != bad else (co, ci, 1, 1)
+        state[f"{layer}.weight"] = torch.from_numpy(
+            rng.normal(0, 0.05, shape).astype(np.float32))
+        state[f"{layer}.bias"] = torch.from_numpy(
+            rng.normal(0, 0.05, co).astype(np.float32))
+    return state
+
+
+def _lin_state(rng, layout: str) -> dict:
+    key = {"lpips_repo": "lin{j}.model.1.weight",
+           "lpips_package": "lins.{j}.model.1.weight"}[layout]
+    state = {key.format(j=j): torch.from_numpy(
+        rng.uniform(0, 1, (1, c, 1, 1)).astype(np.float32))
+        for j, c in enumerate(convert_lpips_weights.HEAD_WIDTHS)}
+    if layout == "lpips_package":  # the backbone rides along, unused here
+        state["net.slice1.0.weight"] = torch.zeros(64, 3, 3, 3)
+    return state
+
+
+@pytest.mark.parametrize("layout", ["lpips_repo", "lpips_package"])
+def test_lpips_converter_matches_reference(tmp_path, layout, capsys):
+    rng = np.random.default_rng(11)
+    torch.save(_vgg_state(rng), tmp_path / "vgg.pth")
+    torch.save(_lin_state(rng, layout), tmp_path / "lin.pth")
+    args = ["--vgg", str(tmp_path / "vgg.pth"), "--lpips",
+            str(tmp_path / "lin.pth")]
+    _reference("convert_lpips_weights").main(
+        args + ["--out", str(tmp_path / "ref.npz")])
+    want = float(re.search(r"lpips\(black, white\) = ([0-9.]+)",
+                           capsys.readouterr().out).group(1))
+    got = convert_lpips_weights.main(
+        args + ["--out", str(tmp_path / "port.npz"), "--device", "cpu"])
+    with np.load(tmp_path / "ref.npz") as a, np.load(tmp_path / "port.npz") as b:
+        assert sorted(a.files) == sorted(b.files) and len(a.files) == 31
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("fault", ["conv_shape", "head_count", "head_width"])
+def test_lpips_converter_refuses_like_reference(tmp_path, fault):
+    rng = np.random.default_rng(12)
+    lin = _lin_state(rng, "lpips_repo")
+    if fault == "head_count":
+        del lin["lin4.model.1.weight"]
+    if fault == "head_width":
+        lin["lin2.model.1.weight"] = torch.zeros(1, 128, 1, 1)
+    torch.save(_vgg_state(rng, bad=3 if fault == "conv_shape" else -1),
+               tmp_path / "vgg.pth")
+    torch.save(lin, tmp_path / "lin.pth")
+    args = ["--vgg", str(tmp_path / "vgg.pth"), "--lpips",
+            str(tmp_path / "lin.pth"), "--out", str(tmp_path / "x.npz")]
+    with pytest.raises(SystemExit) as want:
+        _reference("convert_lpips_weights").main(args)
+    with pytest.raises(SystemExit) as got:
+        convert_lpips_weights.main(args + ["--device", "cpu"])
+    assert str(got.value) == str(want.value) and str(got.value)
+    assert not (tmp_path / "x.npz").exists()
+
+
+# -- run_quality and summarize_run ----------------------------------------
+
+def _shell_recipe(data: str, out: str, method: str, iters: str) -> list:
+    """The gs-train arguments of ``tools/run_quality.sh``'s launch, the
+    shell's variables substituted."""
+    text = (REPO / "tools" / "run_quality.sh").read_text()
+    body = text[text.index('scripts.train "$METHOD"'):
+                text.index("$EXTRA_FLAGS &")]
+    body = body.replace("\\\n", " ").replace(
+        '${extra[@]+"${extra[@]}"}', "")
+    subs = {"$METHOD": method, "$DATA": data, "$OUT": out,
+            "$EXP": Path(data).name, "$ITERS": iters}
+    for k, v in subs.items():
+        body = body.replace(f'"{k}"', v)
+    return shlex.split(body)[1:]  # "scripts.train"
+
+
+def test_run_quality_builds_the_recipe(tmp_path):
+    data, out = tmp_path / "rt240", tmp_path / "runs"
+    want = _shell_recipe(str(data), str(out), "gaussian-splatting", "15000")
+    assert run_quality.recipe_flags(
+        data, out, "gaussian-splatting", 15000) == want
+    assert run_quality.start_capacity(160_000) == 1 << 18
+    got = []
+    run_quality.main([str(data), str(out), "--device", "cpu", "--model.x",
+                      "1", "--", "--log-every", "5"],
+                     train=lambda argv: got.append(argv) or 0)
+    assert got == [["--device", "cpu", *run_quality.recipe_flags(
+        data, out, "gaussian-splatting", 15000), "--model.x", "1",
+        "--log-every", "5"]]
+
+
+@pytest.fixture(scope="module")
+def quality_run(tmp_path_factory):
+    """The recipe on a small synthetic capture in two stretches (20 steps,
+    then resumed to 30), gs-train run in this process."""
+    from gstk_torch.data.synthetic import generate_synthetic_dataset
+    from gstk_torch.scripts.train import main as train_main
+
+    root = tmp_path_factory.mktemp("quality")
+    data = generate_synthetic_dataset(root / "ds", n_points=300, n_views=6,
+                                      img_wh=(64, 48), device="cpu")
+    calls = []
+
+    def train(argv):
+        calls.append(argv)
+        train_main(argv)
+        return 0
+
+    for iters in (20, 30):
+        assert run_quality.main([str(data), str(root / "runs"),
+                                 "gaussian-splatting", str(iters), "--device",
+                                 "cpu", *TRAIN_FLAGS], train=train) == 0
+    return run_quality.run_dir(data, root / "runs", "gaussian-splatting"), calls
+
+
+def test_run_quality_resumes_from_newest_checkpoint(quality_run, capsys):
+    run_dir, calls = quality_run
+    assert "--load-dir" not in calls[0]
+    i = calls[1].index("--load-dir")
+    assert Path(calls[1][i + 1]) == run_dir / "ckpts"
+    rows = [json.loads(l) for l in (run_dir / "metrics.jsonl").open()]
+    steps = [r["step"] for r in rows if "loss" in r]
+    assert steps == [0, 5, 10, 15, 19, 20, 25, 29]
+    ckpts = sorted(p.name for p in (run_dir / "ckpts").iterdir())
+    assert ckpts == ["step-000000030.ckpt.npz"]
+
+
+def test_summarize_run_matches_reference(quality_run, tmp_path):
+    run_dir, _ = quality_run
+    subprocess.run([sys.executable, str(REPO / "tools" / "summarize_run.py"),
+                    str(run_dir), "--out", str(tmp_path / "ref.md"),
+                    "--every", "10"], check=True, capture_output=True)
+    got = summarize_run.main([str(run_dir), "--out", str(tmp_path / "p.md"),
+                              "--every", "10"])
+    assert got == (tmp_path / "ref.md").read_text()
+    assert "| 29 |" in got and "### Eval (full eval split)" in got
+
+
+# -- the ceiling analysis -------------------------------------------------
+
+EVAL_VIEWS, SIDE, VIEWS = 2, 32, 16
+
+
+@pytest.fixture(scope="module")
+def ceiling(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ceiling")
+    rows = analyze_gt_aliasing.main([
+        "3", "--save", "--save-path", str(root / "gts.npz"), "--eval-json",
+        str(root / "none.json"), "--n-views", str(VIEWS), "--width",
+        str(SIDE), "--height", str(SIDE), "--eval-views", str(EVAL_VIEWS),
+        "--device", "cpu"])
+    return root, rows
+
+
+def test_ceiling_matches_reference(ceiling):
+    from gstk_tpu.data.raytraced import _orbit_pose, build_scene
+
+    root, rows = ceiling
+    ref = _reference("analyze_gt_aliasing")
+    objs = build_scene()
+    fx = 0.5 * SIDE / np.tan(np.radians(40.0) / 2)
+    gts = np.load(root / "gts.npz")["gts"]
+    assert gts.shape == (EVAL_VIEWS, SIDE, SIDE, 3)
+    for ei in range(EVAL_VIEWS):  # the reference's loop body
+        i = ei * 8
+        ring = i % 3
+        c2w = _orbit_pose((7.2, 6.2, 5.2)[ring], (1.2, 2.8, 4.2)[ring],
+                          2 * np.pi * i / VIEWS + 0.21 * ring)
+        img1, a1 = ref.render(objs, c2w, SIDE, SIDE, fx, SIDE / 2.0,
+                              SIDE / 2.0, ss=1)
+        imgS, aS = ref.render(objs, c2w, SIDE, SIDE, fx, SIDE / 2.0,
+                              SIDE / 2.0, ss=3)
+        gt1 = np.rint(img1 * 255) / 255.0 * (a1 >= 0.5)[..., None]
+        gtS = imgS * aS[..., None]
+        ceil = -10 * np.log10(max(np.mean((gt1 - gtS) ** 2), 1e-10))
+        assert rows[ei][:3] == (ei, i, ring)
+        np.testing.assert_allclose(rows[ei][3], ceil, rtol=1e-9)
+        np.testing.assert_allclose(gts[ei], gtS.astype(np.float32), atol=1e-12)
+
+
+def test_eval_vs_supersampled_matches_reference(ceiling, tmp_path):
+    """A port run on the 16-view raytraced capture (eval views 0 and 8)
+    scored by the port's tool and by the reference's steps in gstk_tpu."""
+    import jax.numpy as jnp
+
+    from gstk_torch.scripts.train import main as train_main
+    from gstk_tpu.configs.serialize import load_config
+    from gstk_tpu.data.datamanager import FullImageDatamanager
+    from gstk_tpu.render.renderer import Renderer
+    from gstk_tpu.scripts.eval import batched_eval
+    from gstk_tpu.utils import losses
+    from gstk_tpu.utils.colors import EVAL_BACKGROUND
+
+    root, _ = ceiling
+    data = trt.generate_raytraced_dataset(
+        tmp_path / "rt", VIEWS, (SIDE, SIDE), 2000, device="cpu")
+    train_main(["--device", "cpu", *run_quality.recipe_flags(
+        data, tmp_path / "runs", "gaussian-splatting", 10), *TRAIN_FLAGS,
+        "--dataparser.eval-interval", "8", "--model.num-downscales", "0"])
+    cfg = run_quality.run_dir(data, tmp_path / "runs",
+                              "gaussian-splatting") / "config.yml"
+    got = eval_vs_supersampled.main([
+        str(cfg), "--gts", str(root / "gts.npz"), "--out",
+        str(tmp_path / "vs.json"), "--device", "cpu"])
+    assert json.loads((tmp_path / "vs.json").read_text()) == got
+
+    config = load_config(cfg)
+    renderer = Renderer(cfg.parent / "ckpts", model_config=config.model,
+                        background=EVAL_BACKGROUND)
+    frames = FullImageDatamanager(config.dataparser, seed=config.seed).eval_frames
+    assert len(frames) == EVAL_VIEWS
+    psnr1, _, _, preds = batched_eval(renderer, frames, None,
+                                      return_preds=True)
+    gtS = np.load(root / "gts.npz")["gts"]
+    per = got["per_image"]
+    for i, pred in enumerate(preds):
+        pS = -10 * np.log10(max(float(np.mean((pred - gtS[i]) ** 2)), 1e-10))
+        sS = float(losses.ssim(jnp.asarray(gtS[i]), jnp.asarray(pred)))
+        np.testing.assert_allclose(per["psnr_vs_1spp"][i], float(psnr1[i]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(per["psnr_vs_ss"][i], pS, rtol=1e-4)
+        np.testing.assert_allclose(per["ssim_vs_ss"][i], sS, atol=1e-4)
+
+
+# -- the demo and the import rule ----------------------------------------
+
+def test_train_synthetic_matches_reference(tmp_path):
+    argv = ["--steps", "3", "--res", "32", "--n-gaussians", "200"]
+    lines = {}
+    for name, cmd in (
+            ("ref", [str(REPO / "examples" / "train_synthetic.py")]),
+            ("port", ["-m", "gstk_torch.examples.train_synthetic",
+                      "--device", "cpu"])):
+        out = subprocess.run(
+            [sys.executable, *cmd, *argv, "--out", str(tmp_path / name)],
+            check=True, capture_output=True, text=True, cwd=tmp_path,
+            env={**os.environ, "JAX_PLATFORMS": "cpu",
+                 "PYTHONPATH": str(REPO)}).stdout
+        lines[name] = [l for l in out.splitlines() if l.startswith("step")]
+        assert (tmp_path / name / "trained.ply").stat().st_size > 0
+    assert len(lines["port"]) == 2 and lines["port"] == lines["ref"]
+
+
+TOOLS = ["analyze_gt_aliasing", "convert_lpips_weights", "eval_vs_supersampled",
+         "gen_raytraced_sharded", "quality_workflow", "run_quality",
+         "summarize_run", "tpu_precision_probe"]
+
+
+def test_tools_import_neither_jax_nor_the_reference(tmp_path):
+    """Every new module imports in a process where jax, gstk_tpu and the
+    reference's ``tools`` cannot be imported, and the capture's CLI runs
+    there."""
+    code = ("import sys\n"
+            "for m in ('jax', 'gstk_tpu', 'tools', 'PIL', 'cv2', 'yaml'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            + "".join(f"importlib.import_module('gstk_torch.tools.{m}')\n"
+                      for m in TOOLS)
+            + "importlib.import_module('gstk_torch.examples.train_synthetic')\n"
+            "from gstk_torch.tools.gen_raytraced_sharded import main\n"
+            f"main(['--output-dir', {str(tmp_path / 'c')!r}, '--n-views', '3',"
+            " '--width', '16', '--height', '16', '--seed-points', '50',"
+            " '--device', 'cpu'])\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'gstk_tpu', 'tools') and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=tmp_path,
+                   env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert len(list((tmp_path / "c" / "images").iterdir())) == 3
+
+
+def test_precision_probe_rounds_only_what_it_names(monkeypatch):
+    """The probe's camera matrices are gstk_tpu's with the named products'
+    operands rounded to bfloat16 (a TPU's default f32 matmul pass), and
+    setting no rounding restores the exact functions."""
+    import jax.numpy as jnp
+
+    from gstk_torch.core.cameras import Camera
+    from gstk_torch.models import vanilla
+    from gstk_torch.tools import tpu_precision_probe as probe
+
+    # pytest puts the exact functions back even if an assert below fails
+    monkeypatch.setattr(vanilla, "camera_matrices", vanilla.camera_matrices)
+    monkeypatch.setattr(vanilla, "spherical_harmonics",
+                        vanilla.spherical_harmonics)
+    from gstk_tpu.core.cameras import view_matrix
+    from gstk_tpu.utils.math import projection_matrix
+
+    c2w = trt.view_pose(5, 240)[:3].astype(np.float32)
+    c2w[:3, 3] *= 0.14  # the dataparser's scale of the capture
+    cam = Camera.create(1099.0, 1099.0, 400.0, 400.0, c2w)
+    bf = lambda x: jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32)
+    keep = lambda x: jnp.asarray(x)
+    R = jnp.asarray(c2w[:3, :3]) * jnp.asarray([1.0, -1.0, -1.0])[None, :]
+    fov = 2.0 * jnp.arctan(0.5 * 800 / jnp.float32(1099.0))
+    pm = projection_matrix(0.001, 1000.0, fov, fov)
+
+    def emulated(rt, rf):
+        vm = view_matrix(jnp.asarray(c2w)).at[:3, 3:4].set(
+            -(rt(R.T) @ rt(c2w[:3, 3:4])))
+        return vm, rf(pm) @ rf(vm)
+
+    for parts, (rt, rf) in ((["cameras", "sh"], (bf, bf)),
+                            (["tinv"], (bf, keep)), (["fullmat"], (keep, bf))):
+        probe.set_rounding(parts)
+        vm, fm = vanilla.camera_matrices(cam, 800, 800)
+        jvm, jfm = emulated(rt, rf)
+        np.testing.assert_allclose(vm.numpy(), np.asarray(jvm), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(fm.numpy(), np.asarray(jfm), rtol=1e-6,
+                                   atol=1e-6)
+        assert not torch.equal(fm, probe._exact["cameras"](cam, 800, 800)[1])
+        assert (vanilla.spherical_harmonics is probe.rounded_spherical_harmonics
+                ) == ("sh" in parts)
+    probe.set_rounding([])
+    assert vanilla.camera_matrices is probe._exact["cameras"]
+    assert vanilla.spherical_harmonics is probe._exact["sh"]
