@@ -192,9 +192,24 @@ line:
      K1 and K3 on each rank); the Gaussian-sharded render and train step
      from phase 11's trained state (2^19 lanes) bit-equal to the
      replicated ones (an op off by rounding at the shard's row count would
-     be named and held to phase 10's tolerances), and one refine of the
-     gathered state equal to the replicated refine; each rank's device
-     peak, sharded and replicated, and the ms of the collectives;
+     be named and held to phase 10's tolerances), one refine of the
+     gathered state equal to the replicated refine, and the sharded refine
+     of the shards (``refine(..., mesh=)``) equal to it bit for bit, the
+     generator's state after it too, with a peak above the resident shard
+     under half the whole-state gather's; each rank's device peak, sharded
+     and replicated, and the ms of the collectives; at 2^21 global lanes
+     (SH 3, each rank making the whole state from the seed and keeping
+     its lanes of the reference on the host): the sharded refine against
+     the replicated one and the sharded growth 2^20 -> 2^21 against the
+     padded state sharded again, bit for bit, each timed with its peak
+     beside the whole-state gather's (the refine's under half of it),
+     and the sharded checkpoint against one written from the gathered
+     state (members equal byte for byte); then gs-train with
+     ``--param-sharding auto`` on the two ranks (50 steps on phase 11's
+     dataset from a full capacity, every visible Gaussian densifying, few
+     culled: refines at 10-50, a capacity growth after step 40),
+     counters reset just before (K1-K4 launch on each rank), the whole
+     state gathered no time; gs-eval loads its rank-0 checkpoint;
   18. quality path: (a) ``gstk_torch.tools.gen_raytraced_sharded`` (the
      quality reference's band-limited capture) writes 6 views at 160x160
      ss 3 on the card and on the CPU, every file equal byte for byte (PNGs,
@@ -248,6 +263,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import zipfile
 import zlib
 from datetime import timedelta
 from pathlib import Path
@@ -258,7 +274,13 @@ import torch.distributed as dist
 
 from gstk_torch import _build
 from gstk_torch.core.cameras import Camera
-from gstk_torch.core.gaussians import init_scene, scene_from_numpy, scene_to_numpy
+from gstk_torch.core.gaussians import (
+    FIELD_NAMES,
+    GaussianScene,
+    init_scene,
+    scene_from_numpy,
+    scene_to_numpy,
+)
 from gstk_torch.models.vanilla import (
     VanillaConfig,
     composite_gt_with_background,
@@ -300,8 +322,10 @@ from gstk_torch.data.raytraced import (
 )
 from gstk_torch.data.synthetic import ISECT_CAPACITY, generate_synthetic_dataset
 from gstk_torch.exporter.poisson import poisson_indicator
+from gstk_torch.parallel import gaussian_sharding
 from gstk_torch.parallel.gaussian_sharding import (
     gather_train_state,
+    grow_train_state,
     make_gauss_mesh,
     render_scene_gauss_sharded,
     shard_train_state,
@@ -331,13 +355,14 @@ from gstk_torch.tools import (
 from gstk_torch.train.checkpoint import (
     latest_checkpoint,
     peek_meta,
+    save_checkpoint,
     save_scene,
     train_state_from_numpy,
     train_state_to_numpy,
 )
 from gstk_torch.train.optim import OptimizerConfig, adam_step
 from gstk_torch.train.step import init_train_state, make_train_step
-from gstk_torch.train.strategy import refine
+from gstk_torch.train.strategy import RefineState, refine
 from gstk_torch.train import trainer as trainer_mod
 from gstk_torch.train.trainer import Trainer, area_downscale, train_cache_bytes
 from gstk_torch.utils.colors import EVAL_BACKGROUND
@@ -423,6 +448,10 @@ EQ_H, EQ_W, EQ_VIEWS = 2048, 4096, 8
 # phase 17: gs-train's steps over a one-rank NCCL group; the two gloo
 # ranks' deadline; the 1080p frame's single-band intersection buffer
 PAR_ITERS, RANK_DEADLINE_S, TILE_ISECT = 100, 420, 1 << 22
+# 17(b): the sharded refine, growth and checkpoint at the trainer's default
+# max_capacity (2^21 global lanes, 2^20 a rank); the sharded gs-train run's
+# steps (refines at 10-50, densifying at 40 and 50, a growth between)
+BIG_CAPACITY, GAUSS_TRAIN_ITERS = 1 << 21, 50
 # phase 18: the sharded capture on the card and the CPU; the quality run's
 # seed cloud (enough intersections at 800x800 for the trainer to reach
 # 2^21 and split), headroom (460,000 seeds fill 0.877 of 2^19 lanes, past
@@ -2931,7 +2960,7 @@ def parallel_phase(work_dir: Path, counters, trained: dict) -> dict:
     # (b) two gloo ranks on the card, against one process here
     io = work_dir / "ranks"
     io.mkdir()
-    np.savez(io / "in.npz", ckpt=str(ckpt), c2w=frame.c2w,
+    np.savez(io / "in.npz", ckpt=str(ckpt), c2w=frame.c2w, data=str(data),
              intrinsics=np.array([frame.fx, frame.fy, frame.cx, frame.cy]))
     t1 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -2997,7 +3026,7 @@ def parallel_phase(work_dir: Path, counters, trained: dict) -> dict:
     named = reports[0]["gauss_step_mismatches"]
     for r, rep in enumerate(reports):
         got = rep["launches"]
-        for path in ("dp_step", "gauss_step"):
+        for path in ("dp_step", "gauss_step", "gauss_train"):
             assert all(n >= 1 for n in got[path].values()), (r, path, got[path])
         for path in ("tile_render", "gauss_render"):
             assert got[path]["composite_tiles_fwd"] >= 1, (r, path)
@@ -3013,13 +3042,35 @@ def parallel_phase(work_dir: Path, counters, trained: dict) -> dict:
               f"{rep['replicated_step_peak_mib']:.1f} MiB (gathers "
               f"{rep['gauss_collectives_ms']}); refine gather "
               f"{rep['gauss_refine_gather_ms']:.3f} ms, peak "
-              f"{rep['gauss_refine_gather_peak_mib']:.1f} MiB; launches {got}")
+              f"{rep['gauss_refine_gather_peak_mib']:.1f} MiB; sharded refine "
+              f"{rep['gauss_refine_sharded_ms']:.3f} ms, peak "
+              f"{rep['gauss_refine_sharded_peak_mib']:.1f} MiB; launches {got}")
+        print(f"rank {r} at 2^21 lanes ({rep['big_state_mib']:.1f} MiB a "
+              f"rank): " + "; ".join(
+                  f"{what} {rep[f'big_{what}_ms']:.3f} ms, peak "
+                  f"{rep[f'big_{what}_peak_mib']:.1f} MiB"
+                  for what in ("refine_gather", "refine_sharded", "grow_gather",
+                               "grow_sharded", "ckpt_gathered",
+                               "ckpt_sharded"))
+              + f"; refine info {rep['big_refine_info']}")
+        # the sharded refine against the gather it replaces, phase 11's state
+        assert (rep["gauss_refine_sharded_peak_mib"]
+                < 0.5 * rep["gauss_refine_gather_peak_mib"]), rep
+    # the sharded gs-train run's rank-0 checkpoint in gs-eval
+    run = reports[0]["gauss_train"]
+    res = eval_cli.main(["--load-config", str(Path(run["run_dir"]) / "config.yml"),
+                         "--output-path", str(io / "gauss_eval.json"),
+                         "--skip-lpips"])
+    assert np.isfinite(res["results"]["psnr"]), res["results"]
+    run["gs_eval_psnr"] = res["results"]["psnr"]
+    print(f"17(b) gs-train --param-sharding auto on the two ranks: {run}")
     wall_s = time.perf_counter() - t0
     print(f"17(b) two gloo ranks on the card in {ranks_s:.1f} s: the DP step "
           f"equals one Adam step on the mean of the one-camera gradients "
           f"(moments, parameters, statistics); tile-sharded 1080p "
           f"= the single render; the Gaussian-sharded render, step and refine "
-          f"= the replicated ones (ops off by rounding: {named or 'none'}); "
+          f"= the replicated ones (ops off by rounding: {named or 'none'}), "
+          f"and at 2^21 lanes the sharded refine and growth; "
           f"phase 17 wall time {wall_s:.1f} s")
     return {"launches": {"nccl_world1_run": nccl_launches,
                          "ranks": [rep["launches"] for rep in reports]},
@@ -3188,16 +3239,32 @@ def rank_main(rank: int, world: int, io: Path) -> int:
         v.numel() * v.element_size() for v in list(got.scene.params().values())
         + list(got.adam.mu.values()) + list(got.adam.nu.values())) / 2**20
     # one refine: gathered, refined with the same noise, sharded again
+    # (the reference), then the sharded refine of the same shards
     gathered = counted("gauss_refine_gather", lambda: gather_train_state(got, gmesh))
-    refine(gathered.scene, gathered.adam, gathered.refine, REFINE_STEP, cfg,
-           21, W, generator=gen())
+    _, _, gathered.refine, _ = refine(
+        gathered.scene, gathered.adam, gathered.refine, REFINE_STEP, cfg, 21,
+        W, generator=gen())
     refined = gather_train_state(shard_train_state(gathered, gmesh), gmesh)
-    refine(want.scene, want.adam, want.refine, REFINE_STEP, cfg, 21, W,
-           generator=gen())
+    del gathered
+    g_want = gen()
+    _, _, want.refine, _ = refine(want.scene, want.adam, want.refine,
+                                  REFINE_STEP, cfg, 21, W, generator=g_want)
     bad = _mismatches(_flat_copy(refined), _flat_copy(want))
+    assert not bad, f"the gathered refine differs: {bad}"
+    g_got = gen()
+    _, _, got.refine, info = counted("gauss_refine_sharded", lambda: refine(
+        got.scene, got.adam, got.refine, REFINE_STEP, cfg, 21, W,
+        generator=g_got, mesh=gmesh))
+    bad = _mismatches(_flat_copy(gather_train_state(got, gmesh)),
+                      _flat_copy(refined))
     assert not bad, f"the sharded refine differs: {bad}"
+    assert torch.equal(g_got.get_state(), g_want.get_state())
+    report["gauss_refine_info"] = {k: int(v) for k, v in info.items()}
     out.update({"gauss." + k: v for k, v in _flat_copy(refined).items()
                 if k.startswith(".scene")})
+    del want, got, refined, sharded_state, full, scene
+    sharded_at_scale(gmesh, counted, report)
+    gauss_train_run(io, rank, counted, report)
     report["launches"] = launches
     report["backend"] = dist.get_backend(data.group)  # gloo, on CUDA tensors
     out["report"] = json.dumps(report)
@@ -3205,6 +3272,160 @@ def rank_main(rank: int, world: int, io: Path) -> int:
     np.savez(io / f"out_{rank}.npz", **out)
     dist.destroy_process_group()
     return 0
+
+
+def seeded_state(capacity: int, seed: int):
+    """A train state of ``capacity`` lanes at SH degree ``SH_DEGREE`` made
+    on the card from ``seed``, due a densifying refine at ``REFINE_STEP``:
+    0.85 of the lanes alive, scales around exp(-4.6) (the split size), one
+    lane in ten past the gradient threshold, random moments."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    normal = lambda *shape: torch.randn((capacity,) + shape, generator=g,
+                                        device=DEVICE)
+    uniform = lambda: torch.rand((capacity,), generator=g, device=DEVICE)
+    rest = (SH_DEGREE + 1) ** 2 - 1
+    scene = GaussianScene(
+        means=2.0 * normal(3), scales=0.5 * normal(3) - 4.6, quats=normal(4),
+        features_dc=normal(3), features_rest=0.1 * normal(rest, 3),
+        opacities=2.0 * normal(1), alive=uniform() < 0.85)
+    state = init_train_state(scene)
+    for moments in (state.adam.mu, state.adam.nu):
+        for v in moments.values():
+            v.copy_(normal(*v.shape[1:]).abs_())
+    vis = torch.floor(uniform() * 20.0)
+    # avg_grad = norm / vis * 0.5 * W passes 2e-4 where normal() > 1.28
+    state.refine = RefineState(
+        xys_grad_norm=vis * (4e-4 / W) * torch.exp(normal() - 1.28),
+        vis_counts=vis, max_2dsize=0.1 * uniform())
+    state.step = torch.tensor(REFINE_STEP, dtype=torch.int32, device=DEVICE)
+    return state
+
+
+def sharded_at_scale(gmesh, counted, report) -> None:
+    """Phase 17(b) at 2^21 global lanes (SH 3): the sharded refine equal
+    bit for bit to the replicated refine of the whole state, and the
+    sharded growth 2^20 -> 2^21 equal to the padded state sharded again.
+    Each rank makes the whole state from the seed, keeps its lanes of the
+    reference result on the host, and frees the whole state before the
+    sharded path and the whole-state gather it replaces are timed, each
+    with its peak above the resident shard. Then the sharded checkpoint
+    (rank 0 writes it) against one written from the gathered state:
+    members equal byte for byte."""
+    cfg = VanillaConfig(sh_degree=SH_DEGREE)
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)
+    full = seeded_state(BIG_CAPACITY, SEED)
+    shard = shard_train_state(full, gmesh)
+    g_want = gen()
+    _, _, full.refine, info = refine(full.scene, full.adam, full.refine,
+                                     REFINE_STEP, cfg, 21, W, generator=g_want)
+    want = _flat_copy(shard_train_state(full, gmesh))
+    del full
+    torch.cuda.empty_cache()
+    report["big_state_mib"] = sum(
+        t.numel() * t.element_size() for t in
+        [getattr(shard.scene, k) for k in FIELD_NAMES]
+        + list(shard.adam.mu.values()) + list(shard.adam.nu.values())
+        + list(shard.refine)) / 2**20
+    counted("big_refine_gather", lambda: gather_train_state(shard, gmesh))
+    g_got = gen()
+    _, _, shard.refine, got_info = counted("big_refine_sharded", lambda: refine(
+        shard.scene, shard.adam, shard.refine, REFINE_STEP, cfg, 21, W,
+        generator=g_got, mesh=gmesh))
+    bad = _mismatches(_flat_copy(shard), want)
+    assert not bad, f"the sharded refine at 2^21 differs: {bad}"
+    assert torch.equal(g_got.get_state(), g_want.get_state())
+    info = {k: int(v) for k, v in info.items()}
+    assert {k: int(v) for k, v in got_info.items()} == info
+    assert info["num_split"] > 0 and info["num_dup"] > 0, info
+    report["big_refine_info"] = info
+    del want
+
+    with tempfile.TemporaryDirectory(prefix="gstk_torch_ckpt_") as tmp:
+        tmp = Path(tmp)
+        extras = {"isect_capacity": TRAIN_ISECT, "bands": 1, "sh_degree": 3}
+        counted("big_ckpt_sharded", lambda: save_checkpoint(
+            tmp / "sharded", shard, extras=extras, mesh=gmesh))
+
+        def gathered_ckpt():
+            whole = gather_train_state(shard, gmesh)
+            if gmesh["gauss"].index == 0:
+                save_checkpoint(tmp / "gathered", whole, extras=extras)
+
+        counted("big_ckpt_gathered", gathered_ckpt)
+        if gmesh["gauss"].index == 0:
+            (a,), (b,) = ((tmp / d).glob("*.npz") for d in ("sharded", "gathered"))
+            with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
+                assert za.namelist() == zb.namelist()
+                for name in zb.namelist():
+                    assert za.read(name) == zb.read(name), name
+    del shard
+    torch.cuda.empty_cache()
+
+    small = seeded_state(BIG_CAPACITY // 2, SEED + 1)
+    want = _flat_copy(shard_train_state(grow_train_state(small, BIG_CAPACITY),
+                                        gmesh))
+    shard = shard_train_state(small, gmesh)
+    del small
+    torch.cuda.empty_cache()
+    counted("big_grow_gather", lambda: gather_train_state(shard, gmesh))
+    grown = counted("big_grow_sharded",
+                    lambda: grow_train_state(shard, BIG_CAPACITY, gmesh))
+    bad = _mismatches(_flat_copy(grown), want)
+    assert not bad, f"the sharded growth differs: {bad}"
+    del shard, grown, want
+    torch.cuda.empty_cache()
+    assert (report["big_refine_sharded_peak_mib"]
+            < 0.5 * report["big_refine_gather_peak_mib"]), report
+
+
+def gauss_train_run(io: Path, rank: int, counted, report) -> None:
+    """gs-train with ``--param-sharding auto`` on the two ranks, from phase
+    11's dataset at a full capacity (headroom 1) with every visible
+    Gaussian densifying and few culled (alpha threshold 0.005; the warmup
+    covers step 10, so no opacity reset): refines every 10 steps
+    (densifying at 40 and 50), a capacity growth after step 40, the
+    checkpoint at step 50; the whole state gathered no time
+    (``gather_train_state`` counted)."""
+    with np.load(io / "in.npz") as z:
+        data = str(z["data"])
+    calls = []
+    whole = gaussian_sharding.gather_train_state
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return whole(*args, **kwargs)
+
+    gaussian_sharding.gather_train_state = counting
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    try:
+        trainer = counted("gauss_train", lambda: train_main([
+            "--device", DEVICE, "gaussian-splatting", "--data", data,
+            "--output-dir", str(io / "gauss_train"),
+            "--max-num-iterations", str(GAUSS_TRAIN_ITERS),
+            "--steps-per-eval-image", "0", "--steps-per-eval-all-images", "0",
+            "--steps-per-save", str(GAUSS_TRAIN_ITERS),
+            "--model.num-downscales", "0", "--model.warmup-length", "10",
+            "--model.refine-every", "10", "--model.densify-grad-thresh",
+            "1e-12", "--model.cull-alpha-thresh", "0.005",
+            "--initial-capacity-headroom", "1.0",
+            "--param-sharding", "auto",
+            "--dataparser.eval-mode", "interval", "--dataparser.eval-interval",
+            "8"]))
+    finally:
+        gaussian_sharding.gather_train_state = whole
+    grew = [m for _, m in trainer.growth_events
+            if m.startswith("Growing Gaussian capacity")]
+    refines = PROFILER.counts.get("refinement", 0)
+    assert trainer.gauss_mesh is not None and not calls, len(calls)
+    assert refines >= 2 and grew, (refines, trainer.growth_events)
+    report["gauss_train"] = {
+        "whole_state_gathers": len(calls), "refines": refines, "growths": grew,
+        "refine_ms": PROFILER.totals.get("refinement", 0.0) / refines * 1e3,
+        "grow_ms": PROFILER.totals.get("grow_capacity", 0.0) * 1e3,
+        "save_ms": PROFILER.totals.get("save_checkpoint", 0.0) * 1e3,
+        "capacity": trainer.state.scene.capacity * 2,
+        "run_dir": str(trainer.config.run_dir)}
 
 
 def quality_phase(work_dir: Path, counters) -> dict:

@@ -15,8 +15,16 @@ of the incoming cotangent. That is the gradient of the local lanes because
 every rank rasterises the same gathered inputs, and the compositing
 backward and the per-Gaussian sum (K2, K4) are deterministic, so every
 rank's cotangent is the same. Adam and the densify statistics stay local.
-Refinement and capacity growth gather the state, run unchanged with the
-same generator on every rank, and shard it again.
+
+No rank ever holds the whole training state: refinement runs on the shards
+(``strategy.refine(..., mesh=)``: three flag bytes a lane are gathered, and
+only the children's rows move to their slots' owners);
+:func:`grow_train_state` moves only the rows whose owner changes when the
+capacity grows; ``checkpoint.save_checkpoint(..., mesh=)`` assembles a
+checkpoint's arrays on rank 0's host one shard of one tensor at a time; and
+:func:`scene_to_rank0` gives the viewer the scene's parameters, not the
+moments. :func:`gather_train_state`, which builds the whole state on every
+rank, is kept for tests and the card's reference checks.
 """
 
 from __future__ import annotations
@@ -31,11 +39,16 @@ from gstk_torch.core.cameras import Camera
 from gstk_torch.core.gaussians import FIELD_NAMES, GaussianScene
 from gstk_torch.models.vanilla import VanillaConfig, render_splats, splat_inputs
 from gstk_torch.ops.rasterize import RasterizeConfig
-from gstk_torch.parallel.mesh import Axis, Mesh, get_mesh, world_size
+from gstk_torch.parallel.mesh import (
+    GAUSS_AXIS,
+    Axis,
+    Mesh,
+    axis_of,
+    get_mesh,
+    world_size,
+)
 from gstk_torch.train.optim import AdamState
 from gstk_torch.train.strategy import RefineState
-
-GAUSS_AXIS = "gauss"
 # the projected outputs gathered in one f32 tensor, in this column order
 _F32_COLUMNS = (("xys", 2), ("depths", 1), ("conics", 3), ("colors", 4),
                 ("opacities", 1))
@@ -47,7 +60,7 @@ def make_gauss_mesh(n_devices: Optional[int] = None) -> Mesh:
 
 
 def _axis(mesh_or_axis) -> Axis:
-    return mesh_or_axis if isinstance(mesh_or_axis, Axis) else mesh_or_axis[GAUSS_AXIS]
+    return axis_of(mesh_or_axis, GAUSS_AXIS)
 
 
 def _lanes(capacity: int, axis: Axis) -> slice:
@@ -200,3 +213,74 @@ def render_scene_gauss_sharded(
     out["radii"] = local["radii"]
     out["visible"] = local["radii"] > 0
     return out
+
+
+def _overlap(a0: int, a1: int, b0: int, b1: int) -> int:
+    return max(0, min(a1, b1) - max(a0, b0))
+
+
+def grow_train_state(state, new_cap: int, mesh=None):
+    """``state`` grown to ``new_cap`` lanes, as gstk_tpu grows it: every
+    capacity-leading tensor padded at the end with dead lanes (zeros,
+    identity quats; zero moments and statistics).
+
+    With a Gaussian ``mesh`` (every rank calls it), ``state`` is this
+    rank's lanes and the result is this rank's lanes of the padded global
+    state, exactly :func:`shard_train_state` of it. Lanes keep their global
+    index, so after a growth the low ranks hold the live rows (with 2 ranks
+    and a doubling, rank 0 takes rank 1's rows and rank 1 holds only dead
+    lanes), which keeps the lane order, and so the next refine, equal to
+    the replicated run's. Only the rows whose owner changes move: one
+    variable-row exchange a tensor (``Axis.exchange``)."""
+    n = state.scene.capacity
+    if mesh is None:
+        if new_cap < n:
+            raise ValueError(f"cannot shrink {n} -> {new_cap}")
+        grown = lambda x, dead: torch.cat(
+            [x.detach(), dead(new_cap - n, x)])
+    else:
+        axis = _axis(mesh)
+        cap, me = n * axis.size, axis.index
+        if new_cap < cap:
+            raise ValueError(f"cannot shrink {cap} -> {new_cap}")
+        _lanes(new_cap, axis)  # raises unless the ranks divide new_cap
+        m = new_cap // axis.size
+        send = [_overlap(me * n, (me + 1) * n, q * m, (q + 1) * m)
+                for q in range(axis.size)]
+        recv = [_overlap(p * n, (p + 1) * n, me * m, (me + 1) * m)
+                for p in range(axis.size)]
+        grown = lambda x, dead: torch.cat(
+            [axis.exchange(x.detach(), send, recv), dead(m - sum(recv), x)])
+
+    zeros = lambda k, x: x.new_zeros((k,) + x.shape[1:])
+
+    def dead_quats(k, x):
+        q = zeros(k, x)
+        q[:, 0] = 1.0
+        return q
+
+    scene = GaussianScene(**{
+        k: grown(getattr(state.scene, k),
+                 dead_quats if k == "quats" else zeros)
+        for k in FIELD_NAMES})
+    return dataclasses.replace(
+        state,
+        scene=scene,
+        adam=AdamState(count=state.adam.count,
+                       mu={k: grown(v, zeros) for k, v in state.adam.mu.items()},
+                       nu={k: grown(v, zeros) for k, v in state.adam.nu.items()}),
+        refine=RefineState(*(grown(x, zeros) for x in state.refine)),
+    )
+
+
+def scene_to_rank0(scene: GaussianScene, mesh) -> Optional[GaussianScene]:
+    """The whole scene (parameters and alive mask, not the moments) on the
+    device of index 0, None on the other ranks (every rank calls it): each
+    field assembled on index 0's host by ``Axis.gather_to_host``, then
+    uploaded. The viewer's snapshot under Gaussian sharding."""
+    axis = _axis(mesh)
+    fields = {k: axis.gather_to_host(getattr(scene, k)) for k in FIELD_NAMES}
+    if axis.index:
+        return None
+    return GaussianScene(**{k: v.to(scene.means.device)
+                            for k, v in fields.items()})

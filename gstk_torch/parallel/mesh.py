@@ -11,15 +11,16 @@ one process per device (SPMD), as the reference's ``mp.spawn`` +
   * :func:`get_mesh` lays the ranks out on named axes (``DATA_AXIS`` for
     cameras, ``"gauss"`` for Gaussian sharding), each with its process
     group and this rank's coordinate;
-  * :class:`Axis` holds the collectives the step and the sharded renders
-    call: sum, max, and a gather along the first dimension (gstk_tpu's
-    ``pmean`` is the step's sum, then a division by the axis size, since
-    gloo has no average).
+  * :class:`Axis` holds the collectives the step, the sharded renders and
+    the sharded refine, growth and checkpoint call: sum, max, a gather
+    along the first dimension (gstk_tpu's ``pmean`` is the step's sum, then
+    a division by the axis size, since gloo has no average), a
+    variable-row exchange and a gather to index 0's host.
 
 gloo takes CUDA tensors in every collective used here (all-reduce sum and
-max, all-gather; checked on an H100 with torch 2.11.0+cu128), so a gloo
-group on the card, as in the two-rank checks on one card, needs no
-staging through host memory.
+max, all-gather, ``all_to_all_single``; checked on an H100 with torch
+2.11.0+cu128), so a gloo group on the card, as in the two-rank checks on
+one card, needs no staging through host memory.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch.distributed as dist
 from gstk_torch import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
+GAUSS_AXIS = "gauss"
 # a collective's deadline: a rank that never joins fails the others' call
 # instead of hanging them
 DEFAULT_TIMEOUT = timedelta(minutes=5)
@@ -161,6 +163,39 @@ class Axis:
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts)
 
+    def exchange(self, x: torch.Tensor, send_counts: Sequence[int],
+                 recv_counts: Sequence[int]) -> torch.Tensor:
+        """A variable-row exchange (``all_to_all_single``): the first
+        ``send_counts[0]`` rows of ``x`` go to index 0, the next
+        ``send_counts[1]`` to index 1, and so on; returns the rows received,
+        ``recv_counts[p]`` from index p, in axis order. Rank p's
+        ``send_counts[q]`` must be rank q's ``recv_counts[p]``."""
+        src = x.contiguous()
+        if src.dtype == torch.bool:  # moved as bytes: gloo has no bool
+            src = src.view(torch.uint8)
+        out = src.new_empty((sum(recv_counts),) + tuple(src.shape[1:]))
+        dist.all_to_all_single(out, src, list(recv_counts), list(send_counts),
+                               group=self.group)
+        return out.view(x.dtype)
+
+    def gather_to_host(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """Every rank's ``x`` (equal shapes) concatenated along dim 0 in
+        axis order on index 0's host (None elsewhere). One rank's rows at a
+        time move to index 0 and are copied to its host, so no device holds
+        more than its own ``x`` and one other rank's."""
+        x = x.detach()
+        parts = [x.cpu()] if self.index == 0 else []
+        for p in range(1, self.size):
+            send, recv = [0] * self.size, [0] * self.size
+            if self.index == p:
+                send[0] = x.shape[0]
+            if self.index == 0:
+                recv[p] = x.shape[0]
+            got = self.exchange(x if self.index == p else x[:0], send, recv)
+            if self.index == 0:
+                parts.append(got.cpu())
+        return torch.cat(parts) if self.index == 0 else None
+
 
 @dataclasses.dataclass
 class Mesh:
@@ -178,6 +213,12 @@ class Mesh:
 
     def __contains__(self, name: str) -> bool:
         return name in self.axes
+
+
+def axis_of(mesh_or_axis, name: str) -> Axis:
+    """``mesh_or_axis`` itself when it is an :class:`Axis`, else its axis
+    ``name``."""
+    return mesh_or_axis if isinstance(mesh_or_axis, Axis) else mesh_or_axis[name]
 
 
 def get_mesh(n_devices: Optional[int] = None,

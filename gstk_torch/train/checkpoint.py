@@ -30,6 +30,7 @@ from gstk_torch.core.gaussians import (
     scene_from_numpy,
     scene_to_numpy,
 )
+from gstk_torch.parallel.mesh import GAUSS_AXIS, axis_of
 from gstk_torch.train.optim import AdamState
 from gstk_torch.train.step import TrainState
 from gstk_torch.train.strategy import RefineState
@@ -90,16 +91,31 @@ def _moment_key(which: str, group: str, adam: str = ".adam") -> str:
 _CAM_GROUP = "camera_opt"
 
 
-def train_state_to_numpy(state: TrainState) -> Dict[str, np.ndarray]:
-    """The train state as numpy arrays under gstk_tpu's checkpoint keys."""
+def train_state_to_numpy(state: TrainState, mesh=None
+                         ) -> Optional[Dict[str, np.ndarray]]:
+    """The train state as numpy arrays under gstk_tpu's checkpoint keys.
+
+    With a Gaussian ``mesh`` (every rank calls it), the capacity-leading
+    tensors (scene, moments, statistics) are this rank's lanes: each comes
+    back whole on index 0's host, assembled one rank's shard at a time
+    (``Axis.gather_to_host``), so no device holds more than its shard and
+    one other rank's shard of one tensor. The other ranks get None."""
     host = lambda x: x.detach().cpu().numpy()
-    flat = {f".scene/.{k}": v for k, v in scene_to_numpy(state.scene).items()}
+    axis = None if mesh is None else axis_of(mesh, GAUSS_AXIS)
+
+    def lanes(x: torch.Tensor) -> Optional[np.ndarray]:
+        if axis is None:
+            return host(x)
+        whole = axis.gather_to_host(x)
+        return None if whole is None else whole.numpy()
+
+    flat = {f".scene/.{k}": lanes(getattr(state.scene, k)) for k in FIELD_NAMES}
     flat[".adam/.count"] = host(state.adam.count)
     for which, moments in (("mu", state.adam.mu), ("nu", state.adam.nu)):
         for group, v in moments.items():
-            flat[_moment_key(which, group)] = host(v)
+            flat[_moment_key(which, group)] = lanes(v)
     for k in RefineState._fields:
-        flat[f".refine/.{k}"] = host(getattr(state.refine, k))
+        flat[f".refine/.{k}"] = lanes(getattr(state.refine, k))
     flat[".step"] = host(state.step)
     if state.cam_adjust is not None:
         flat[".cam_adjust"] = host(state.cam_adjust)
@@ -107,6 +123,8 @@ def train_state_to_numpy(state: TrainState) -> Dict[str, np.ndarray]:
         for which in ("mu", "nu"):
             flat[_moment_key(which, _CAM_GROUP, ".cam_adam")] = host(
                 getattr(state.cam_adam, which)[_CAM_GROUP])
+    if axis is not None and axis.index != 0:
+        return None
     return flat
 
 
@@ -143,14 +161,20 @@ def train_state_from_numpy(arrays: Dict[str, np.ndarray],
 
 
 def save_checkpoint(ckpt_dir, state: TrainState, keep_only_latest: bool = True,
-                    extras: Optional[dict] = None) -> Path:
+                    extras: Optional[dict] = None, mesh=None
+                    ) -> Optional[Path]:
     """Write the train state and ``extras`` (scalar run metadata, saved as
     ``.meta/<key>``: the grown ``isect_capacity`` and ``bands``, the active
     ``sh_degree``) as ``step-{step:09d}.ckpt.npz``; with
-    ``keep_only_latest`` the directory's other checkpoints are deleted."""
+    ``keep_only_latest`` the directory's other checkpoints are deleted.
+    With a Gaussian ``mesh`` every rank calls it with its shard and index 0
+    writes the whole state (the bytes one process writes), assembled on its
+    host by :func:`train_state_to_numpy`; the other ranks return None."""
+    flat = train_state_to_numpy(state, mesh)
+    if flat is None:
+        return None
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    flat = train_state_to_numpy(state)
     path = ckpt_dir / f"step-{int(flat['.step']):09d}.ckpt.npz"
     for k, v in (extras or {}).items():
         flat[f".meta/{k}"] = np.asarray(v)

@@ -27,9 +27,10 @@ Multi-device training runs one process per device
 ``process_id`` (or ``torchrun``'s environment) start the process group at
 ``setup``. With more than one rank, ``param_sharding="auto"`` shards the
 state over the ranks (each renders every step's camera through the
-gathered projection; refinement and growth gather the state and shard it
-again), else ``data_parallel="auto"`` gives each rank its share of the
-train views (``num_shards`` = world size) and averages the gradients. Under
+gathered projection; refinement, growth, checkpoints and the viewer's
+snapshot keep it sharded: no rank holds the whole state), else
+``data_parallel="auto"`` gives each rank its share of the train views
+(``num_shards`` = world size) and averages the gradients. Under
 data parallelism each rank draws its step's random numbers from its own
 generator, seeded from (seed, rank), where gstk_tpu splits one key; the
 refinement noise comes from the shared generator, so every rank holds the
@@ -65,14 +66,13 @@ from gstk_torch.ops.rasterize import RasterizeConfig
 from gstk_torch.parallel import gaussian_sharding as gsharding
 from gstk_torch.parallel import mesh as pmesh
 from gstk_torch.train import checkpoint as ckpt
-from gstk_torch.train.optim import AdamState, OptimizerConfig
+from gstk_torch.train.optim import OptimizerConfig
 from gstk_torch.train.step import (
-    TrainState,
     _camera_at,
     init_train_state,
     make_train_step,
 )
-from gstk_torch.train.strategy import RefineState, refine
+from gstk_torch.train.strategy import refine
 from gstk_torch.utils import losses as loss_utils
 from gstk_torch.utils.colors import EVAL_BACKGROUND
 from gstk_torch.utils.lpips import lpips
@@ -361,11 +361,14 @@ class Trainer:
             seed[0].shape[0] if seed is not None else cfg.model.num_random
         )
         capacity = _round_up_pow2(int(n_seed * cfg.initial_capacity_headroom))
+        # under Gaussian sharding the whole state is made (or loaded) on the
+        # host, and only this rank's lanes go to the device
+        home = self.device if self.gauss_mesh is None else torch.device("cpu")
         scene = init_scene(
             torch.Generator().manual_seed(cfg.seed), capacity, seed,
             num_random=cfg.model.num_random,
             random_scale=cfg.model.random_scale,
-            sh_degree=cfg.model.sh_degree, device=self.device,
+            sh_degree=cfg.model.sh_degree, device=home,
         )
         # the camera-opt group: one adjustment a train view (of every rank)
         num_cams = (self.datamanager.num_train_global
@@ -424,7 +427,9 @@ class Trainer:
                     )
                 print(f"Resumed from {path} (raster: {self.raster_cfg})")
         if self.gauss_mesh is not None:
-            self.state = gsharding.shard_train_state(self.state, self.gauss_mesh)
+            self.state = ckpt.train_state_from_numpy(ckpt.train_state_to_numpy(
+                gsharding.shard_train_state(self.state, self.gauss_mesh)),
+                self.device)
         self.viewer = None
         if cfg.vis == "viewer" and not self.rank:
             from gstk_torch.viewer.viser_viewer import make_viewer
@@ -546,32 +551,21 @@ class Trainer:
             "sh_degree": self._sh_degree(int(self.state.step)),
         }
 
-    def _full_state(self) -> TrainState:
-        """The whole state: gathered from every rank under Gaussian sharding
-        (every rank must call it then), else the state itself."""
-        if self.gauss_mesh is None:
-            return self.state
-        return gsharding.gather_train_state(self.state, self.gauss_mesh)
-
-    def _set_full_state(self, state: TrainState) -> None:
-        self.state = (state if self.gauss_mesh is None
-                      else gsharding.shard_train_state(state, self.gauss_mesh))
-
     def _capacity(self) -> int:
         """The scene's capacity over every rank."""
         return self.state.scene.capacity * (
             self.world if self.gauss_mesh is not None else 1)
 
     def _refine(self) -> None:
-        """Refine the state at its step, in place (on the gathered state,
-        then sharded again, under Gaussian sharding)."""
-        s = self._full_state()
+        """Refine the state at its step, in place (each rank its own lanes
+        under Gaussian sharding)."""
+        s = self.state
         _, _, s.refine, _ = refine(
             s.scene, s.adam, s.refine, s.step, self.config.model,
             self.datamanager.num_train_global,
             max(self.datamanager.image_size), generator=self.generator,
+            mesh=self.gauss_mesh,
         )
-        self._set_full_state(s)
 
     # -- capacity management ----------------------------------------------
     def _drain_isect_window(self, metrics_host: Dict) -> Dict:
@@ -586,21 +580,8 @@ class Trainer:
         return out
 
     def _grow_capacity(self, new_cap: int) -> None:
-        state = self._full_state()
-        extra = new_cap - state.scene.capacity
-        pad = lambda x: torch.cat([x, x.new_zeros((extra,) + x.shape[1:])])
-        self._set_full_state(TrainState(
-            scene=grow_scene(state.scene, new_cap),
-            adam=AdamState(
-                count=state.adam.count,
-                mu={k: pad(v) for k, v in state.adam.mu.items()},
-                nu={k: pad(v) for k, v in state.adam.nu.items()},
-            ),
-            refine=RefineState(*(pad(x) for x in state.refine)),
-            step=state.step,
-            cam_adjust=state.cam_adjust,
-            cam_adam=state.cam_adam,
-        ))
+        self.state = gsharding.grow_train_state(self.state, new_cap,
+                                                self.gauss_mesh)
 
     def _grown(self, step: Optional[int], message: str) -> None:
         """Print a growth ``message``, with the step it follows when known,
@@ -715,9 +696,9 @@ class Trainer:
                 self.writer.put_scalar(EventName.ITER_TRAIN_TIME, dt, step)
                 self.writer.write_out_storage()
                 self._maybe_grow(self._drain_isect_window(metrics_host), step)
-                sharded_view = cfg.vis == "viewer" and self.gauss_mesh is not None
-                scene = (self._full_state().scene if sharded_view
-                         else self.state.scene)
+                scene = self.state.scene
+                if cfg.vis == "viewer" and self.gauss_mesh is not None:
+                    scene = gsharding.scene_to_rank0(scene, self.gauss_mesh)
                 if self.viewer is not None:
                     self.viewer.update_scene(scene, metrics_host)
 
@@ -746,14 +727,15 @@ class Trainer:
               f"{PROFILER.report()}")
 
     def _save_checkpoint(self) -> None:
-        """Rank 0 writes the (whole) state."""
-        state = self._full_state()
-        if not self.rank:
-            ckpt.save_checkpoint(
-                self.run_dir / "ckpts", state,
-                self.config.save_only_latest_checkpoint,
-                extras=self._ckpt_meta(),
-            )
+        """Rank 0 writes the whole state (under Gaussian sharding every rank
+        sends its lanes to rank 0's host)."""
+        if self.rank and self.gauss_mesh is None:
+            return
+        ckpt.save_checkpoint(
+            self.run_dir / "ckpts", self.state,
+            self.config.save_only_latest_checkpoint,
+            extras=self._ckpt_meta(), mesh=self.gauss_mesh,
+        )
 
     def _evals_here(self) -> bool:
         """Evals render on rank 0, and on every rank under Gaussian sharding

@@ -9,6 +9,7 @@ reads its inputs from ``<dir>/in.npz`` and writes ``<dir>/out_<rank>.npz``.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -21,7 +22,7 @@ import torch.distributed as dist
 
 from gstk_torch.core.camera_opt import CameraOptConfig
 from gstk_torch.core.cameras import Camera
-from gstk_torch.core.gaussians import scene_from_numpy
+from gstk_torch.core.gaussians import FIELD_NAMES, scene_from_numpy
 from gstk_torch.models.depth import DepthConfig
 from gstk_torch.models.vanilla import VanillaConfig, render_scene, splat_inputs
 from gstk_torch.ops.rasterize import RasterizeConfig, rasterize
@@ -33,7 +34,11 @@ from gstk_torch.parallel.mesh import (
     get_mesh,
     initialize_distributed,
 )
-from gstk_torch.train.checkpoint import train_state_from_numpy, train_state_to_numpy
+from gstk_torch.train.checkpoint import (
+    save_checkpoint,
+    train_state_from_numpy,
+    train_state_to_numpy,
+)
 from gstk_torch.train.optim import OptimizerConfig
 from gstk_torch.train.step import init_train_state, make_train_step
 from gstk_torch.train.strategy import refine
@@ -44,6 +49,17 @@ REPO = Path(__file__).resolve().parent.parent
 H, W = 40, 56
 RASTER = RasterizeConfig(chunk_size=16, isect_capacity=1 << 13)
 MODEL = VanillaConfig(background_color="black", sh_degree=0)
+INFO = ("num_alive", "num_split", "num_dup", "num_cull", "num_dropped",
+        "did_reset")
+# the trainer run that grows: every visible Gaussian densifies (the large
+# ones split, by world size alone), and the seed cloud fills 300 of 512
+# lanes (headroom 1), so the refines at steps 9 and 12 fill the lanes, the
+# capacity grows at the next fetch and the refine at step 15 writes into
+# the grown lanes
+GROW_ITERS = 15
+GROW_MODEL = dict(densify_grad_thresh=1e-12, densify_size_thresh=0.03,
+                  split_screen_size=1.0)
+GROW_TRAINER = dict(initial_capacity_headroom=1.0)
 
 
 def spawn(case: str, world: int, io: Path) -> list:
@@ -265,22 +281,24 @@ def case_mesh4(rank, world, inp, out):
         out[name + "loss"] = float(m["loss"])
 
 
-def trainer_run(root: Path, name: str, **extra):
-    """gs-train's Trainer on the synthetic set in ``root/ds``: 6 steps,
-    refining at steps 3 and 6, then one eval of every eval view; returns
-    the trainer and that eval."""
+def trainer_run(root: Path, name: str, iters: int = 6, model=None,
+                **extra):
+    """gs-train's Trainer on the synthetic set in ``root/ds``: ``iters``
+    steps, refining every 3 (an opacity reset at step 3, densifying from
+    step 9), then one eval of every eval view; ``model`` overrides fields
+    of the model config. Returns the trainer and that eval."""
     from gstk_torch.configs.methods import method_configs
     from gstk_torch.train.trainer import Trainer
 
     cfg = dataclasses.replace(
         method_configs()["gaussian-splatting"], data=root / "ds",
-        output_dir=root / name, experiment_name="ds", max_num_iterations=6,
+        output_dir=root / name, experiment_name="ds", max_num_iterations=iters,
         steps_per_save=100, steps_per_eval_image=0,
         steps_per_eval_all_images=0, isect_capacity=8192, raster_chunk=16,
         log_every=2, **extra,
     )
     cfg.model = dataclasses.replace(cfg.model, sh_degree=1, warmup_length=2,
-                                    refine_every=3)
+                                    refine_every=3, **(model or {}))
     cfg.dataparser = dataclasses.replace(
         cfg.dataparser, data=root / "ds", eval_mode="interval",
         eval_interval=3, downscale_factor=1)
@@ -290,20 +308,140 @@ def trainer_run(root: Path, name: str, **extra):
     return trainer, trainer.eval_all(cfg.max_num_iterations)
 
 
+def grow_ckpts(root: Path) -> Path:
+    """The checkpoints of the sharded run that grows."""
+    return root / "gauss_grow" / "ds" / "gaussian-splatting" / "ckpts"
+
+
+def _no_whole_state(*args, **kwargs):
+    raise AssertionError("the trainer gathered the whole state")
+
+
 def case_trainer(rank, world, inp, out):
     """The Trainer on 2 ranks: data parallel (the group started from
     ``coordinator_address``), then ``param_sharding="auto"`` on the same
-    group."""
+    group, then a sharded run that refines and grows (``GROW_*``) with
+    ``gather_train_state`` made to raise and the viewer on (rank 0 keeps
+    its last snapshot), and one resumed from its checkpoint for 3 more
+    steps, the gather raising too."""
     root = Path(str(inp["root"]))
-    for name, extra in (
+    for name, kw in (
         ("dp", dict(coordinator_address=f"127.0.0.1:{int(inp['tcp_port'])}",
                     num_processes=world, process_id=rank)),
         ("gauss", dict(param_sharding="auto")),
+        ("gauss_grow", dict(param_sharding="auto", iters=GROW_ITERS,
+                            model=GROW_MODEL, vis="viewer", viewer_port=0,
+                            **GROW_TRAINER)),
+        ("gauss_resume", dict(param_sharding="auto", iters=GROW_ITERS + 3,
+                              model=GROW_MODEL, load_dir=grow_ckpts(root),
+                              **GROW_TRAINER)),
     ):
-        trainer, ev = trainer_run(root, name, **extra)
+        whole = gs.gather_train_state
+        if name.startswith("gauss_"):
+            gs.gather_train_state = _no_whole_state
+        try:
+            trainer, ev = trainer_run(root, name, **kw)
+        finally:
+            gs.gather_train_state = whole
         out[name + "_eval_psnr"] = ev.get("eval_psnr", np.nan)
         out[name + "_world"] = trainer.world
-        out.update(_flat(trainer._full_state(), name + "."))
+        state = trainer.state
+        if trainer.gauss_mesh is not None:
+            state = gs.gather_train_state(state, trainer.gauss_mesh)
+        out.update(_flat(state, name + "."))
+        if trainer.viewer is not None:
+            trainer.viewer.stop()
+            out.update({f"{name}_viewer.{k}": getattr(
+                trainer.viewer._scene, k).detach().numpy() for k in FIELD_NAMES})
+        out[name + "_growth"] = json.dumps(trainer.growth_events)
+
+
+def _random_state(capacity: int, seed: int, num_cameras=None):
+    """A train state of ``capacity`` lanes at SH 1 from ``seed``: random
+    parameters (0.7 of the lanes alive), moments, statistics and step."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape: rng.normal(size=(capacity,) + shape).astype(np.float32)
+    scene = scene_from_numpy(dict(
+        means=f32(3), scales=f32(3) - 2.0, quats=f32(4), features_dc=f32(3),
+        features_rest=f32(3, 3), opacities=f32(1),
+        alive=rng.random(capacity) < 0.7), "cpu")
+    state = init_train_state(scene, num_cameras=num_cameras)
+    for t in (list(state.adam.mu.values()) + list(state.adam.nu.values())
+              + list(state.refine)):
+        t.copy_(torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)))
+    state.step = torch.tensor(seed, dtype=torch.int32)
+    return state
+
+
+def case_refine(rank, world, inp, out):
+    """The sharded refine against the replicated one on each case of
+    ``inp["cases"]`` (JSON: name, VanillaConfig fields, train views, image
+    size; the state under ``<name>.``): both drawing from a generator seeded
+    alike (its state after the refine recorded), and the sharded one with
+    gstk_tpu's noise (``<name>.noise``). Then the sharded growth against
+    ``shard_train_state`` of the padded state (a doubling, and 24 lanes
+    grown 1.5x and rounded to 64), a checkpoint written under sharding
+    beside one process's, and capacities the ranks do not divide."""
+    mesh = gs.make_gauss_mesh()
+    # the collectives alone: rank p sends p + q + 1 rows (p, q, i) to rank
+    # q; every rank's bool flags gathered on rank 0's host
+    axis = mesh[gs.GAUSS_AXIS]
+    rows = torch.tensor([[rank, q, i] for q in range(world)
+                         for i in range(rank + q + 1)])
+    out["exchange"] = axis.exchange(
+        rows, [rank + q + 1 for q in range(world)],
+        [p + rank + 1 for p in range(world)]).numpy()
+    flags = axis.gather_to_host(torch.arange(5) % (rank + 2) == 0)
+    out["gather_to_host"] = np.zeros(0) if flags is None else flags.numpy()
+    for name, cfg_kw, num_train, img_size in json.loads(str(inp["cases"])):
+        flat = {k[len(name) + 1:]: inp[k] for k in inp.files
+                if k.startswith(name + ".")}
+        noise = torch.from_numpy(flat.pop("noise"))
+        cfg = VanillaConfig(**cfg_kw)
+        for tag, kw in (("rep.", {}), ("shd.", dict(mesh=mesh)),
+                        ("jax.", dict(mesh=mesh, noise=noise))):
+            st = train_state_from_numpy(flat, "cpu")
+            if "mesh" in kw:
+                st = gs.shard_train_state(st, mesh)
+            gen = torch.Generator().manual_seed(3)
+            _, _, st.refine, info = refine(st.scene, st.adam, st.refine,
+                                           st.step, cfg, num_train, img_size,
+                                           generator=gen, **kw)
+            if "mesh" in kw:
+                st = gs.gather_train_state(st, mesh)
+            out.update(_flat(st, f"{name}.{tag}"))
+            out[f"{name}.{tag}info"] = np.asarray([int(info[k]) for k in INFO])
+            out[f"{name}.{tag}gen"] = gen.get_state().numpy()
+
+    for cap, new_cap in ((64, 128), (24, 64)):
+        full = _random_state(cap, cap)
+        out.update(_flat(gs.shard_train_state(
+            gs.grow_train_state(full, new_cap), mesh), f"grow{cap}_ref."))
+        out.update(_flat(gs.grow_train_state(
+            gs.shard_train_state(full, mesh), new_cap, mesh), f"grow{cap}."))
+
+    full = _random_state(64, 5, num_cameras=3)
+    extras = {"isect_capacity": 8192, "bands": 2, "sh_degree": 1}
+    written = save_checkpoint(inp["ckpt_dir"].item() + "/sharded",
+                              gs.shard_train_state(full, mesh), extras=extras,
+                              mesh=mesh)
+    out["ckpt_written"] = written is not None
+    if rank == 0:
+        save_checkpoint(inp["ckpt_dir"].item() + "/one", full, extras=extras)
+
+    shard = gs.shard_train_state(full, mesh)
+    raised = []
+    for fn in (lambda: gs.shard_train_state(_random_state(31, 1), mesh),
+               lambda: gs.grow_train_state(shard, 2 * 64 + 1, mesh),
+               lambda: refine(shard.scene, shard.adam, shard.refine, 100,
+                              MODEL, 4, 64, noise=torch.zeros(2, 63, 3),
+                              mesh=mesh)):
+        try:
+            fn()
+            raised.append(False)
+        except ValueError:
+            raised.append(True)
+    out["indivisible_raised"] = np.asarray(raised)
 
 
 def card_case(dev):
@@ -378,7 +516,8 @@ def main():
     else:
         initialize_distributed(f"file://{io / 'store'}", world, rank,
                                device="cpu", timeout=TIMEOUT)
-        {"dp": case_dp, "mesh4": case_mesh4}[case](rank, world, inp, out)
+        {"dp": case_dp, "mesh4": case_mesh4,
+         "refine": case_refine}[case](rank, world, inp, out)
     dist.barrier()
     np.savez(io / f"out_{rank}.npz", **out)
     dist.destroy_process_group()

@@ -28,10 +28,21 @@ Tolerances:
   * the 2x2 data x gauss mesh against the 2-way data mesh: loss rtol 1e-6,
     parameters atol 1e-6, as gstk_tpu's test holds its 2-D mesh;
   * the trainer: every rank's state equal bit for bit, the eval finite; the
-    Gaussian-sharded trainer equal to the single-process trainer.
+    Gaussian-sharded trainer equal to the single-process trainer, also
+    through refines and a capacity growth with the whole-state gather
+    made to raise;
+  * the sharded refine (``refine(..., mesh=)``) on 2 and 4 ranks equal to
+    the replicated refine bit for bit (state, info, the generator's state
+    after it), and with gstk_tpu's noise within ``test_torch_refine.py``'s
+    tolerances of gstk_tpu's refine; the sharded growth equal to
+    ``shard_train_state`` of the padded state bit for bit; a checkpoint
+    written under sharding equal to one process's member by member (the
+    zip's timestamps aside).
 """
 
+import json
 import socket
+import zipfile
 from pathlib import Path
 
 import jax
@@ -48,6 +59,8 @@ from gstk_tpu.parallel.mesh import DATA_AXIS, data_parallel_train_step, get_mesh
 from gstk_tpu.parallel.tile_sharding import make_tile_mesh, rasterize_tile_sharded
 from gstk_tpu.train import checkpoint as jckpt
 from gstk_tpu.train.optim import OptimizerConfig as JOptimizerConfig
+from gstk_tpu.train import strategy as jstrategy
+from gstk_tpu.train.step import TrainState as JTrainState
 from gstk_tpu.train.step import init_train_state, make_train_step
 from tests._scenes import make_camera, make_gaussians
 from tests._torch_ranks import spawn
@@ -265,6 +278,205 @@ def test_2d_mesh_dp_x_gauss_sharding(four_ranks):
                                       outs[0]["mesh2d..scene/.means"])
 
 
+def _refine_cases():
+    """``test_torch_refine.py``'s cases plus three split samples and a
+    cull-only step (past ``stop_split_at``): name -> (inputs, what the case
+    must exercise). Every case has lanes 0-39 of 64 alive, so on 2 or 4
+    ranks rank 0 holds only parents and its children land on other ranks."""
+    from tests import test_torch_refine as tr
+
+    def split3():
+        scene, adam, rs, step, cfg, num_train = tr._split_dup()
+        return scene, adam, rs, step, dict(cfg, n_split_samples=3), num_train
+
+    def cull_only():
+        scene, adam, rs, _, cfg, num_train = tr._cull_transparent()
+        return scene, adam, rs, 10_050, cfg, num_train
+
+    cases = dict(tr.CASES)
+    cases["three_split_samples"] = (
+        split3, lambda i: i["num_split"] == tr.N // 2 and i["num_dropped"] > 0)
+    cases["cull_only_after_densification"] = (
+        cull_only, lambda i: i["num_cull"] >= tr.N // 2
+        and i["num_split"] == i["num_dup"] == 0)
+    return cases
+
+
+@pytest.fixture(scope="module", params=[2, 4])
+def refine_ranks(request, tmp_path_factory):
+    """The "refine" case on 2 and 4 ranks, every refine case's state and
+    gstk_tpu's noise in its inputs; (world, rank outputs, {case: (gstk_tpu's
+    scene, Adam state and info, the case's check, the state before)})."""
+    from tests import test_torch_refine as tr
+
+    world = request.param
+    tmp_path = tmp_path_factory.mktemp(f"refine{world}")
+    arrays, specs, jax_out = {}, [], {}
+    key = jax.random.PRNGKey(0)
+    for name, (make, exercised) in _refine_cases().items():
+        scene, adam, rs, step, cfg_kw, num_train = make()
+        jcfg = JVanillaConfig(**cfg_kw)
+        noise = np.stack([np.asarray(jax.random.normal(k, (tr.CAPACITY, 3)))
+                          for k in jax.random.split(key, jcfg.n_split_samples)])
+        flat = _jflat(JTrainState(scene, adam, rs, jnp.int32(step)),
+                      tmp_path / name)
+        arrays.update({f"{name}.{k}": v for k, v in flat.items()})
+        arrays[f"{name}.noise"] = noise
+        specs.append((name, cfg_kw, num_train, max(tr.H, tr.W)))
+        jscene, jadam, _, jinfo = jstrategy.refine(
+            scene, adam, rs, jnp.int32(step), key, jcfg, num_train,
+            max(tr.H, tr.W))
+        jax_out[name] = (jscene, jadam,
+                         {k: np.asarray(v).item() for k, v in jinfo.items()},
+                         exercised, flat)
+    (tmp_path / "ckpt").mkdir()
+    np.savez(tmp_path / "in.npz", cases=json.dumps(specs),
+             ckpt_dir=str(tmp_path / "ckpt"), **arrays)
+    return world, spawn("refine", world, tmp_path), jax_out, tmp_path / "ckpt"
+
+
+def _state_keys(out, prefix):
+    return [k[len(prefix):] for k in out
+            if k.startswith(prefix) and not k.endswith(("info", "gen"))]
+
+
+def test_axis_exchange_and_gather_to_host(refine_ranks):
+    """``Axis.exchange`` delivers each rank's rows for rank q to rank q, in
+    rank order, with uneven counts (rank p sends p + q + 1 rows to q);
+    ``Axis.gather_to_host`` gives rank 0 every rank's bool flags in rank
+    order and the others nothing."""
+    world, outs, _, _ = refine_ranks
+    for q, o in enumerate(outs):
+        want = [[p, q, i] for p in range(world) for i in range(p + q + 1)]
+        np.testing.assert_array_equal(o["exchange"], want)
+    want = np.concatenate([np.arange(5) % (r + 2) == 0 for r in range(world)])
+    np.testing.assert_array_equal(outs[0]["gather_to_host"], want)
+    assert outs[0]["gather_to_host"].dtype == bool
+    assert all(o["gather_to_host"].size == 0 for o in outs[1:])
+
+
+def test_sharded_refine_matches_replicated(refine_ranks):
+    """Every case: the sharded refine drawing its noise from a generator
+    equals the replicated refine from the same seed, bit for bit, on
+    every rank: the state, the info and the generator's state after it."""
+    world, outs, jax_out, _ = refine_ranks
+    cap = jax_out["splits_and_dups"][4][".scene/.alive"].shape[0]
+    for name, (*_, before) in jax_out.items():
+        rep, shd = f"{name}.rep.", f"{name}.shd."
+        keys = _state_keys(outs[0], rep)
+        assert len(keys) > 20
+        for o in outs:
+            for k in keys:
+                np.testing.assert_array_equal(o[shd + k], o[rep + k],
+                                              err_msg=name + k)
+            for k in ("info", "gen"):
+                np.testing.assert_array_equal(o[shd + k], o[rep + k],
+                                              err_msg=f"{name} {k}")
+        _same_ranks(outs, f"{name}.")
+        if name == "splits_and_dups":
+            written = (outs[0][shd + ".scene/.alive"]
+                       & ~before[".scene/.alive"])
+            assert written[cap // world:].any() and written.sum() > 0
+
+
+def test_sharded_refine_matches_jax(refine_ranks):
+    """Every case: the sharded refine with gstk_tpu's noise against
+    gstk_tpu's refine, as ``test_torch_refine.py`` holds the replicated
+    refine (info and alive exact; parameters and moments within rtol 1e-6,
+    atol 1e-7; the means within 1e-6 of the largest |mean|)."""
+    from tests import test_torch_refine as tr
+
+    _, outs, jax_out, _ = refine_ranks
+    for name, (jscene, jadam, jinfo, exercised, _) in jax_out.items():
+        o, pre = outs[0], f"{name}.jax."
+        assert exercised(jinfo), (name, jinfo)
+        assert list(o[pre + "info"]) == [int(jinfo[k]) for k in tr.INFO], name
+        np.testing.assert_array_equal(o[pre + ".scene/.alive"],
+                                      np.asarray(jscene.alive))
+        means_scale = tr.RTOL * float(np.abs(np.asarray(jscene.means)).max())
+        for g in GROUPS:
+            tr._assert_close(f"{name} {g}", o[f"{pre}.scene/.{g}"],
+                             getattr(jscene, g),
+                             max(tr.ATOL, means_scale) if g == "means"
+                             else tr.ATOL)
+            for which in ("mu", "nu"):
+                tr._assert_close(f"{name} {which} {g}",
+                                 o[f"{pre}.adam/.{which}/['{g}']"],
+                                 getattr(jadam, which)[g])
+        for k in tr.tstrategy.RefineState._fields:
+            assert not o[f"{pre}.refine/.{k}"].any(), (name, k)
+
+
+def test_sharded_growth_matches_padded_state(refine_ranks):
+    """``grow_train_state`` on the shards equals ``shard_train_state`` of
+    the padded whole state, bit for bit on every rank: 64 -> 128 lanes (a
+    doubling) and 24 -> 64 (1.5x rounded up to a power of two)."""
+    _, outs, _, _ = refine_ranks
+    for o in outs:
+        for cap in (64, 24):
+            keys = _state_keys(o, f"grow{cap}_ref.")
+            assert len(keys) > 20
+            for k in keys:
+                np.testing.assert_array_equal(o[f"grow{cap}.{k}"],
+                                              o[f"grow{cap}_ref.{k}"],
+                                              err_msg=f"{cap} {k}")
+
+
+def test_sharded_checkpoint_matches_one_process(refine_ranks):
+    """A checkpoint written under sharding (rank 0 assembles it on its
+    host) holds the members of one process's checkpoint of the whole state
+    in the same order, each byte for byte; only rank 0 writes."""
+    _, outs, _, ckpt_dir = refine_ranks
+    assert [bool(o["ckpt_written"]) for o in outs] == [True] + [False] * (
+        len(outs) - 1)
+    (got,), (want,) = (list((ckpt_dir / d).glob("step-*.ckpt.npz"))
+                       for d in ("sharded", "one"))
+    assert got.name == want.name
+    with zipfile.ZipFile(got) as zg, zipfile.ZipFile(want) as zw:
+        assert zg.namelist() == zw.namelist()
+        assert any("cam_adam" in n for n in zw.namelist())
+        for n in zw.namelist():
+            assert zg.read(n) == zw.read(n), n
+
+
+def test_sharding_needs_a_capacity_the_ranks_divide(refine_ranks):
+    """Sharding 31 lanes, growing to 129 lanes, and a refine whose noise
+    covers 63 lanes raise on every rank."""
+    for o in refine_ranks[1]:
+        assert o["indivisible_raised"].tolist() == [True, True, True]
+
+
+def test_grow_train_state_pads_like_grow_scene():
+    """``grow_train_state`` without a mesh: the scene as ``grow_scene``
+    pads it, zero moments and statistics in the new lanes, the rest kept."""
+    import torch
+    from gstk_torch.core.gaussians import grow_scene
+    from gstk_torch.parallel.gaussian_sharding import grow_train_state
+    from gstk_torch.train.checkpoint import train_state_to_numpy
+
+    import tests._torch_ranks as ranks
+
+    state = ranks._random_state(24, 2, num_cameras=2)
+    before = {k: v.copy() for k, v in train_state_to_numpy(state).items()}
+    grown = train_state_to_numpy(grow_train_state(state, 64))
+    padded = grow_scene(state.scene, 64)
+    for k, v in before.items():
+        got = grown[k]
+        if k.startswith(".scene/"):
+            np.testing.assert_array_equal(
+                got, getattr(padded, k[len(".scene/."):]).detach().numpy(), k)
+        if got.shape != v.shape:
+            assert got.shape[0] == 64
+            np.testing.assert_array_equal(got[:24], v, err_msg=k)
+            if not k.startswith(".scene/"):
+                assert not got[24:].any(), k
+        else:
+            np.testing.assert_array_equal(got, v, err_msg=k)
+    with pytest.raises(ValueError, match="shrink"):
+        grow_train_state(state, 16)
+    assert isinstance(grow_train_state(state, 24).scene.means, torch.Tensor)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -294,6 +506,60 @@ def test_trainer_data_parallel_from_coordinator(trainer_ranks):
     assert np.isfinite(outs[0]["dp_eval_psnr"])
     _same_ranks(outs, "dp.")
     assert (root / "dp" / "ds" / "gaussian-splatting" / "ckpts").exists()
+
+
+def test_trainer_param_sharding_grows_like_one_process(trainer_ranks):
+    """``param_sharding="auto"`` on 2 ranks from a seed cloud that fills
+    most of its capacity: refines at steps 3 to 15 (densifying from 9), the
+    capacity grown 512 -> 1024 after step 12, so the refine at 15 writes
+    children from rank 0's parents into rank 1's new lanes, with
+    ``gather_train_state`` raising on the ranks, end with the one-process
+    state bit for bit; rank 0's viewer holds the last snapshot, the whole
+    scene."""
+    from gstk_torch.core.gaussians import FIELD_NAMES
+    from gstk_torch.train.checkpoint import train_state_to_numpy
+
+    import tests._torch_ranks as ranks
+
+    root, outs = trainer_ranks
+    _same_ranks(outs, "gauss_grow.")
+    events = [m for _, m in json.loads(str(outs[0]["gauss_grow_growth"]))]
+    assert any(m.startswith("Growing Gaussian capacity") for m in events)
+    trainer, _ = ranks.trainer_run(root, "single_grow", iters=ranks.GROW_ITERS,
+                                   model=ranks.GROW_MODEL, **ranks.GROW_TRAINER)
+    assert [m for _, m in trainer.growth_events] == events
+    want = train_state_to_numpy(trainer.state)
+    assert want[".scene/.alive"].shape == (1024,)
+    assert want[".scene/.alive"][512:].any()
+    for k, v in want.items():
+        np.testing.assert_array_equal(outs[0]["gauss_grow." + k], v, err_msg=k)
+    for k in FIELD_NAMES:
+        np.testing.assert_array_equal(outs[0][f"gauss_grow_viewer.{k}"],
+                                      want[f".scene/.{k}"], err_msg=k)
+    assert not any(k.startswith("gauss_grow_viewer.") for k in outs[1])
+
+
+def test_trainer_param_sharding_resumes_like_one_process(trainer_ranks):
+    """The sharded run resumed from the growing run's checkpoint (1024
+    lanes, past the fresh 512) for 3 steps, the whole state made on each
+    rank's host only and ``gather_train_state`` raising, ends with the
+    state one process reaches from the same checkpoint, bit for bit."""
+    from gstk_torch.train.checkpoint import train_state_to_numpy
+
+    import tests._torch_ranks as ranks
+
+    root, outs = trainer_ranks
+    _same_ranks(outs, "gauss_resume.")
+    trainer, _ = ranks.trainer_run(
+        root, "single_resume", iters=ranks.GROW_ITERS + 3,
+        model=ranks.GROW_MODEL, load_dir=ranks.grow_ckpts(root),
+        **ranks.GROW_TRAINER)
+    want = train_state_to_numpy(trainer.state)
+    assert int(want[".step"]) == ranks.GROW_ITERS + 3
+    assert want[".scene/.alive"].shape[0] >= 1024
+    for k, v in want.items():
+        np.testing.assert_array_equal(outs[0]["gauss_resume." + k], v,
+                                      err_msg=k)
 
 
 def test_trainer_param_sharding_matches_one_process(trainer_ranks):
