@@ -1,7 +1,7 @@
 """Drive gstk_torch's render, train, eval and export paths, its three
 methods, the raytraced data, mono co-gs, the live viewer, data processing,
-the parallel paths and the quality workflow on one CUDA card and check
-them.
+the parallel paths, the quality workflow and the reference's published
+quality configurations on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -229,17 +229,34 @@ line:
      trainer's final eval bit for bit; (e) ``gstk_torch.tools.
      convert_lpips_weights`` on random VGG16 and LPIPS-head state dicts,
      its self-test on the card within rtol 1e-4 of the same on the CPU;
+  19. configurations: (a) ``quality_workflow``'s 1-spp capture (the serial
+     generator) writes 18(a)'s 6 views at 160x160 on the card and on the
+     CPU, every file equal byte for byte, and its mono-depth variant from
+     the card's; (b) one ``rasterize_mode="antialiased"`` train step
+     through K1-K4 against the same step with ``backend="plain"`` (phase
+     10's tolerances) on bench.py's scene with log-scales in
+     ``AA_SCALES``, where the compensation runs from under 0.05 to over
+     0.9; (c) co-gs with sensor depth, mono co-gs and antialiased vanilla
+     on (a)'s capture, each through ``quality_workflow`` (exact cameras,
+     40 steps in two stretches in child processes, gs-eval equal to the
+     trainer's final eval, two counted steps here) and through
+     ``tpu_precision_probe --rounded fullmat`` (40 steps here, the
+     trainer's eval equal to the rounded gs-eval), after which the exact
+     camera and SH functions are back in place; the counters reset just
+     before each run and read just after;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
 bounds, phase 14's launches under ``launches_methods``, phase 15's
 under ``launches_data_viewer``, phase 16's under
 ``launches_process_data``, phase 17's under ``launches_parallel``, per
-rank and path, and phase 18's under ``launches_quality``; P1-P3:
+rank and path, phase 18's under ``launches_quality`` and phase 19's, a
+step of each configuration and each probe run, under
+``launches_configs``; P1-P3:
 launches in phase 12's run of the probes; phase 11's numbers under
 ``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
 view and a frame included, under ``backend``, phase 14's under
 ``methods``, phase 15's under ``data_viewer``, phase 16's under
 ``process_data``, phase 17's under ``parallel``, phase 18's under
-``quality``), the card's name and
+``quality``, phase 19's under ``configs``), the card's name and
 power limit, and the last line ``{"ok":
 true, "device": {...}}``.
 Kernel times are torch.profiler's device time; a kernel it records no
@@ -273,6 +290,7 @@ import torch
 import torch.distributed as dist
 
 from gstk_torch import _build
+from gstk_torch.core import cameras as cameras_mod
 from gstk_torch.core.cameras import Camera
 from gstk_torch.core.gaussians import (
     FIELD_NAMES,
@@ -281,6 +299,8 @@ from gstk_torch.core.gaussians import (
     scene_from_numpy,
     scene_to_numpy,
 )
+from gstk_torch.models import vanilla as vanilla_mod
+from gstk_torch.ops import sh as sh_mod
 from gstk_torch.models.vanilla import (
     VanillaConfig,
     composite_gt_with_background,
@@ -350,7 +370,9 @@ from gstk_torch.tools import (
     gen_raytraced_sharded,
     kernel_device_ms,
     make_mono_depth,
+    quality_workflow,
     run_quality,
+    tpu_precision_probe,
 )
 from gstk_torch.train.checkpoint import (
     latest_checkpoint,
@@ -459,6 +481,17 @@ BIG_CAPACITY, GAUSS_TRAIN_ITERS = 1 << 21, 50
 Q_VIEWS, Q_SIDE, Q_SEEDS = 6, 160, 5000
 Q_POINTS, Q_JITTER, Q_HEADROOM = 460_000, 0.12, 1.0
 Q_STRETCHES, ONE_BAND_ISECT = (20, 40), 1 << 22
+# phase 19: the 1-spp capture at 18(a)'s size; the configurations' short
+# runs (two stretches through quality_workflow, one through the probe);
+# the antialiased step's log-scales, wide enough that sub-pixel Gaussians
+# have a compensation far below 1
+C_ITERS, C_FIRST = 40, 20
+AA_SCALES = (-7.5, -2.5)
+CONFIGS = {  # quality_workflow / probe flags, gs-train flags
+    "240_cogs": (["--method", "co-gs"], []),
+    "240_mono_cogs": (["--mono"], []),
+    "240_aa": ([], ["--model.rasterize-mode", "antialiased"]),
+}
 VGG_LAYERS = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
 REPO = Path(__file__).resolve().parent
 
@@ -475,9 +508,10 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_scene(device):
+def bench_scene(device, log_scales=(-4.5, -2.5)):
     """bench.py's scene: uniform points in front of an identity camera,
-    kNN scales replaced by tight log-scales, opacities in [0.3, 0.9]."""
+    kNN scales replaced by tight log-scales (uniform in ``log_scales``),
+    opacities in [0.3, 0.9]."""
     g = torch.Generator().manual_seed(SEED)
 
     def u(lo, hi, *shape):
@@ -489,7 +523,7 @@ def bench_scene(device):
     arrays = scene_to_numpy(init_scene(
         g, CAPACITY, (pts, rgb), sh_degree=SH_DEGREE, device="cpu"
     ))
-    arrays["scales"][:N_POINTS] = u(-4.5, -2.5, N_POINTS, 3)
+    arrays["scales"][:N_POINTS] = u(*log_scales, N_POINTS, 3)
     op = u(0.3, 0.9, N_POINTS)
     arrays["opacities"][:N_POINTS, 0] = np.log(op / (1.0 - op))
     return scene_from_numpy(arrays, device)
@@ -927,6 +961,7 @@ def run(ckpt_dir: str) -> int:
     process_numbers = process_data_phase(Path(ckpt_dir), counters)
     parallel_numbers = parallel_phase(Path(ckpt_dir), counters, trainer_numbers)
     quality_numbers = quality_phase(Path(ckpt_dir), counters)
+    configs_numbers = configs_phase(Path(ckpt_dir), counters)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -972,6 +1007,8 @@ def run(ckpt_dir: str) -> int:
             "ranks": [{path: n[name] for path, n in rank.items()}
                       for rank in parallel_numbers["launches"]["ranks"]]}
         entry["launches_quality"] = quality_numbers["launches"][name]
+        entry["launches_configs"] = {
+            run: n[name] for run, n in configs_numbers["launches"].items()}
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
@@ -993,6 +1030,7 @@ def run(ckpt_dir: str) -> int:
                       "process_data": process_numbers,
                       "parallel": parallel_numbers,
                       "quality": quality_numbers,
+                      "configs": configs_numbers,
                       "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3633,6 +3671,180 @@ def lpips_converter_check(work_dir: Path) -> dict:
           f"({card_s:.2f} s), {cpu!r} on the CPU")
     assert math.isfinite(card) and math.isclose(card, cpu, rel_tol=1e-4)
     return {"self_test_card": card, "self_test_cpu": cpu, "card_s": card_s}
+
+
+def configs_phase(work_dir: Path, counters) -> dict:
+    """Phase 19: the reference's other published configurations at a small
+    size: the 1-spp capture on the card against the CPU and its mono
+    variant, an antialiased step through the kernels against the plain
+    step, and short runs of co-gs, mono co-gs and the antialiased mode with
+    exact and rounded cameras; the counters reset just before each run and
+    read just after."""
+    phase("19 configurations: the 1-spp capture and its mono variant, the "
+          "antialiased step vs plain, co-gs / mono co-gs / antialiased "
+          "through quality_workflow and the probe")
+    t0 = time.perf_counter()
+    launches = {}
+    capture = capture_1spp_check(work_dir)
+    aa_step = aa_step_check(counters)
+    launches["240_aa_step"] = aa_step.pop("launches")
+    runs = {}
+    for name, (flags, extra) in CONFIGS.items():
+        runs[name] = config_runs(work_dir / f"cfg_{name}", name, flags,
+                                 extra, counters)
+        launches.update(runs[name].pop("launches"))
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    loaded = [m for m in ("PIL", "cv2", "yaml") if m in sys.modules]
+    assert not loaded, f"phase 19 imported {loaded}"
+    wall_s = time.perf_counter() - t0
+    print(f"phase 19 wall time {wall_s:.1f} s")
+    return {"capture": capture, "aa_step": aa_step, "runs": runs,
+            "launches": launches, "wall_s": wall_s}
+
+
+def capture_1spp_check(work_dir: Path) -> dict:
+    """19(a): ``quality_workflow``'s 1-spp capture (the serial generator)
+    on the card and on the CPU, every file equal byte for byte; its mono
+    variant made from the card's."""
+    size = (Q_SIDE, Q_SIDE)
+    card, cpu = work_dir / "c1spp_card", work_dir / "c1spp_cpu"
+    card_s = synchronized_s(lambda: quality_workflow.prepare_data(
+        card, "1spp", True, Q_VIEWS, size, Q_SEEDS, DEVICE))
+    t0 = time.perf_counter()
+    quality_workflow.prepare_data(cpu, "1spp", False, Q_VIEWS, size, Q_SEEDS,
+                                  "cpu")
+    cpu_s = time.perf_counter() - t0
+    name = quality_workflow.data_name("1spp", False)
+    files = sorted(p.relative_to(card / name)
+                   for p in (card / name).rglob("*") if p.is_file())
+    assert len(files) == 2 * Q_VIEWS + 2, files
+    differ = [str(f) for f in files if (card / name / f).read_bytes()
+              != (cpu / name / f).read_bytes()]
+    mono = card / quality_workflow.data_name("1spp", True)
+    meta = json.loads((mono / "transforms.json").read_text())
+    scales = [f["scale"] for f in meta["frames"]]
+    print(f"1-spp capture: {Q_VIEWS} views at {Q_SIDE}x{Q_SIDE} with its "
+          f"mono variant in {card_s:.2f} s on the card, the capture alone "
+          f"{cpu_s:.2f} s on the CPU; {len(files)} files, {len(differ)} "
+          f"differ {differ}; mono scales {[round(x, 4) for x in scales]}")
+    assert not differ and len(scales) == Q_VIEWS
+    assert all(math.isfinite(x) and x > 0 for x in scales)
+    return {"views": Q_VIEWS, "side": Q_SIDE, "card_s": card_s,
+            "cpu_s": cpu_s, "files": len(files), "files_differ": len(differ)}
+
+
+def aa_step_check(counters) -> dict:
+    """19(b): one antialiased train step through K1-K4 against the same
+    step with ``backend="plain"`` (phase 10's tolerances), on bench.py's
+    scene with log-scales in ``AA_SCALES``: the compensation the opacities
+    are multiplied by reaches far below 1."""
+    dev = torch.device(DEVICE)
+    cfg = VanillaConfig(sh_degree=SH_DEGREE, background_color="black",
+                        rasterize_mode="antialiased")
+    camera = Camera.create(FOCAL, FOCAL, W / 2, H / 2, pose(0), device=dev)
+    gt = torch.rand((H, W, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    scene = bench_scene(dev, AA_SCALES)
+    with torch.no_grad():
+        aa = splat_inputs(scene, camera, H, W, sh_degree=SH_DEGREE, config=cfg)
+        classic = splat_inputs(scene, camera, H, W, sh_degree=SH_DEGREE,
+                               config=dataclasses.replace(
+                                   cfg, rasterize_mode="classic"))
+    seen = (aa["radii"] > 0) & (classic["opacities"] > 0)
+    comp = (aa["opacities"][seen] / classic["opacities"][seen]).double()
+    quantiles = [float(q) for q in torch.quantile(
+        comp, torch.tensor([0.0, 0.1, 0.5, 0.9, 1.0], dtype=comp.dtype,
+                           device=comp.device))]
+    below = float((comp < 0.5).double().mean())
+    print(f"antialiased scene: {int(seen.sum())} lanes on screen, "
+          f"compensation quantiles 0/0.1/0.5/0.9/1 {[round(q, 4) for q in quantiles]}"
+          f", {below:.3f} of them below 0.5")
+    assert quantiles[0] < 0.05 and below > 0.1 and quantiles[-1] > 0.9
+    step_fn = make_train_step(cfg, RasterizeConfig(isect_capacity=TRAIN_ISECT),
+                              OptimizerConfig(), H, W, sh_degree=SH_DEGREE)
+    plain_fn = make_train_step(
+        cfg, RasterizeConfig(isect_capacity=TRAIN_ISECT, backend="plain"),
+        OptimizerConfig(), H, W, sh_degree=SH_DEGREE)
+    state, state_p = init_train_state(scene), init_train_state(bench_scene(dev, AA_SCALES))
+    before = train_state_to_numpy(state)
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    state, metrics = step_fn(state, camera, gt)
+    torch.cuda.synchronize()
+    launches = launches_of(counters)
+    state_p, metrics_p = plain_fn(state_p, camera, gt)
+    torch.cuda.synchronize()
+    print(f"antialiased step: launches {launches}; {int(metrics['num_intersects'])} "
+          f"intersections;", end=" ")
+    assert all(n == 1 for n in launches.values()), launches
+    compare_steps(metrics, metrics_p, before, train_state_to_numpy(state),
+                  train_state_to_numpy(state_p), OptimizerConfig())
+    return {"compensation_quantiles": quantiles, "share_below_half": below,
+            "num_intersects": int(metrics["num_intersects"]),
+            "loss": float(metrics["loss"]), "loss_plain": float(metrics_p["loss"]),
+            "launches": launches}
+
+
+def config_runs(work_dir: Path, name: str, flags: list, extra: list,
+                counters) -> dict:
+    """19(c): configuration ``name`` on the 1-spp capture at 18(a)'s size:
+    ``quality_workflow`` (exact cameras; gs-train and gs-eval in child
+    processes, two stretches to ``C_ITERS``; its counted steps here), then
+    the probe with ``fullmat`` rounded (gs-train in process,
+    ``C_ITERS`` steps); after the probe the exact camera and SH functions
+    are back in place."""
+    common = ["--capture", "1spp", "--work-dir", str(work_dir), "--n-views",
+              str(Q_VIEWS), "--seed-points", str(Q_SEEDS), "--iters",
+              str(C_ITERS), "--device", DEVICE, *flags]
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    rep = quality_workflow.main([
+        *common, "--out-dir", str(work_dir / "report"), "--first-stretch",
+        str(C_FIRST), "--width", str(Q_SIDE), "--height", str(Q_SIDE), "--",
+        *extra])
+    exact_s = time.perf_counter() - t0
+    counted = rep["counted"]
+    step = {k: v // counted["steps"] for k, v in counted["launches"].items()}
+    evals = rep["evals"]
+    assert rep["config"] == name, rep["config"]
+    assert evals[C_ITERS]["bit_for_bit"], evals
+    assert all(math.isfinite(e["psnr"]) for e in evals.values()), evals
+    assert all(n == counted["bands"] for n in step.values()), counted
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    probe = tpu_precision_probe.main([
+        *common, "--rounded", "fullmat", "--out-dir",
+        str(work_dir / "probe"), "--size", str(Q_SIDE), "--", *extra])
+    probe_s = time.perf_counter() - t0
+    probe_launches = launches_of(counters)
+    restored = (vanilla_mod.camera_matrices is cameras_mod.camera_matrices
+                and vanilla_mod.spherical_harmonics is sh_mod.spherical_harmonics)
+    final = probe["trainer_evals"][-1]
+    print(f"{name}: quality_workflow {C_ITERS} steps in {exact_s:.1f} s, "
+          f"gs-eval {[e['psnr'] for e in evals.values()]} (the last = the "
+          f"trainer's), "
+          f"launches a step {step}; probe (fullmat rounded) {probe_s:.1f} s, "
+          f"screen shift {probe['screen_shift']}, trainer's eval {final[1]!r}"
+          f" = gs-eval rounded {probe['eval_rounded']['psnr']!r} (exact "
+          f"{probe['eval_exact']['psnr']!r}), launches {probe_launches}; "
+          f"exact functions back: {restored}")
+    assert restored, "the probe left its rounding in place"
+    assert probe["config"] == name and final[0] == C_ITERS
+    assert final[1] == probe["eval_rounded"]["psnr"]
+    assert probe["screen_shift"]["max_px"] > 0
+    assert probe_launches["composite_tiles_bwd"] >= C_ITERS, probe_launches
+    assert probe_launches["composite_tiles_bwd"] == probe_launches["segment_sum_sorted"]
+    return {"exact_s": exact_s, "probe_s": probe_s,
+            "exact_psnr": [e["psnr"] for e in evals.values()],
+            "rounded_psnr": probe["eval_rounded"]["psnr"],
+            "rounded_scored_exact_psnr": probe["eval_exact"]["psnr"],
+            "screen_shift": probe["screen_shift"],
+            "launches": {f"{name}_step": step,
+                         f"{name}_probe_{C_ITERS}_steps": probe_launches}}
 
 
 def trace(label, fn, top: int = 8, show: tuple = ()) -> dict:

@@ -1,12 +1,36 @@
-"""The reference's quality workflow end to end, and its report: the
-band-limited capture (:mod:`gstk_torch.tools.gen_raytraced_sharded`), the
-15k recipe (:mod:`gstk_torch.tools.run_quality`) in two resumed stretches,
-gs-eval after each, the trainer's summary
-(:mod:`gstk_torch.tools.summarize_run`), the per-ring table, the ceiling
-analysis (:mod:`gstk_torch.tools.analyze_gt_aliasing` and
+"""The reference's quality workflow end to end, and its report: a capture
+of the raytraced scene (``--capture``: the band-limited ``ss3`` one of
+:mod:`gstk_torch.tools.gen_raytraced_sharded`, or the ``1spp`` one of
+:mod:`gstk_torch.data.raytraced`), with ``--mono`` its mono-depth variant
+(:mod:`gstk_torch.tools.make_mono_depth`), the 15k recipe
+(:mod:`gstk_torch.tools.run_quality`) in two resumed stretches, gs-eval
+after each, the trainer's summary (:mod:`gstk_torch.tools.summarize_run`),
+the per-ring table, the ceiling analysis
+(:mod:`gstk_torch.tools.analyze_gt_aliasing` and
 :mod:`gstk_torch.tools.eval_vs_supersampled`) and one counted train step
 from the final checkpoint (K1-K4 launches a step at the run's last band
-count).
+count). With ``--published`` the report sets the reference's gs-eval JSON
+beside the final result: PSNR, SSIM, the per-ring means and the lowest
+view, and the difference of each.
+
+Each of the reference's published 15k runs is one command (flags after
+``--`` go to gs-train after the recipe's):
+
+  =============================  ==========================================
+  ``eval_240_ss3.json``          (the defaults)
+  ``eval_240.json``              ``--capture 1spp``
+  ``eval_240_cogs.json``         ``--capture 1spp --method co-gs``
+  ``eval_240_aa.json``           ``--capture 1spp -- --model.rasterize-mode
+                                 antialiased``
+  ``eval_240_mono_cogs.json``    ``--capture 1spp --mono`` (co-gs with the
+                                 four mono flags of
+                                 ``docs/RESULTS_240_MONO.md``)
+  =============================  ==========================================
+
+The capture's directory is named as the reference named it
+(``raytraced240``, ``raytraced240_ss3``, ``raytraced240_mono``), so the run's
+``experiment_name`` is the reference's; the final gs-eval is copied to
+``eval_<cfg>_torch.json``, ``<cfg>`` the reference's name for the run.
 
 Everything goes under ``--work-dir``; what a report needs (the gs-eval
 JSONs, ``metrics.jsonl``, the trainer's log, ``report.md`` and
@@ -14,8 +38,14 @@ JSONs, ``metrics.jsonl``, the trainer's log, ``report.md`` and
 Both stretches always run; a call cut short leaves checkpoints that
 :mod:`gstk_torch.tools.run_quality` resumes from.
 
+The ceiling analysis compares the views' 1-spp GT with a 3x3 supersampled
+render, so it is the ceiling of the ``1spp`` capture's own GT; on the
+``ss3`` capture it bounds a 1-spp capture of the same views, not the GT
+this run trained on, and the report says which.
+
 Usage (on the card):
-  python -m gstk_torch.tools.quality_workflow --out-dir runs/quality/report
+  python -m gstk_torch.tools.quality_workflow --capture 1spp \\
+      --published eval_240.json --out-dir runs/quality/report
 CPU rehearsal at a small size:
   python -m gstk_torch.tools.quality_workflow --device cpu --n-views 24 \\
       --width 64 --height 64 --seed-points 2000 --iters 40 \\
@@ -42,6 +72,136 @@ from gstk_torch.tools.gen_raytraced_sharded import generate_sharded_dataset
 
 EVAL_INTERVAL = 8  # the recipe's eval split
 GROWTH = re.compile(r"^step (\d+): (.*)$")
+CAPTURES = {"ss3": 3, "1spp": 1}  # rays per pixel axis
+CEILING_SS = 3  # analyze_gt_aliasing's supersampling
+# docs/RESULTS_240_MONO.md: co-gs on the mono dataset
+MONO_FLAGS = ["--model.use-est-depth", "True",
+              "--model.use-pearson-depth", "True",
+              "--model.use-scaled-est-depth", "True",
+              "--model.use-depth-regularization", "True"]
+
+
+def data_name(capture: str, mono: bool) -> str:
+    """The capture's directory, as the reference named it."""
+    return ("raytraced240" + ("_ss3" if capture == "ss3" else "")
+            + ("_mono" if mono else ""))
+
+
+def rasterize_mode(flags: List[str]) -> str:
+    """The ``--model.rasterize-mode`` gs-train takes from ``flags`` (the
+    last one wins), ``classic`` without one."""
+    mode = "classic"
+    for i, a in enumerate(flags):
+        if a == "--model.rasterize-mode" and i + 1 < len(flags):
+            mode = flags[i + 1]
+        elif a.startswith("--model.rasterize-mode="):
+            mode = a.split("=", 1)[1]
+    return mode
+
+
+def config_name(capture: str, method: str, mono: bool,
+                flags: List[str]) -> str:
+    """The reference's name of the run, ``eval_<name>.json``:
+    ``240[_ss3][_aa][_mono][_cogs]``."""
+    return ("240" + ("_ss3" if capture == "ss3" else "")
+            + ("_aa" if rasterize_mode(flags) == "antialiased" else "")
+            + ("_mono" if mono else "")
+            + ("" if method == "gaussian-splatting"
+               else "_" + method.replace("-", "")))
+
+
+def add_config_args(ap: argparse.ArgumentParser) -> None:
+    """The options that pick one of the reference's configurations."""
+    ap.add_argument("--capture", choices=sorted(CAPTURES), default="ss3")
+    ap.add_argument("--mono", action="store_true",
+                    help="train co-gs on the capture's mono-depth variant")
+    ap.add_argument("--method", default=None,
+                    help="gaussian-splatting (co-gs with --mono)")
+    ap.add_argument("--published", type=Path, default=None,
+                    help="the reference's gs-eval JSON of this configuration")
+
+
+def resolve_config(ap: argparse.ArgumentParser, args,
+                   extra: List[str]) -> tuple:
+    """(method, gs-train flags after the recipe's, the reference's name of
+    the run) of :func:`add_config_args`' options; ``--mono`` puts its four
+    flags before ``extra``."""
+    method = args.method or ("co-gs" if args.mono else "gaussian-splatting")
+    if args.mono and method != "co-gs":
+        ap.error("--mono trains co-gs")
+    extra = (list(MONO_FLAGS) if args.mono else []) + list(extra)
+    return method, extra, config_name(args.capture, method, args.mono, extra)
+
+
+def prepare_data(work_dir: Path, capture: str, mono: bool, n_views: int,
+                 img_wh, seed_points: int, device=None,
+                 reuse: bool = False) -> tuple:
+    """Write the capture (and with ``mono`` its mono-depth variant) under
+    ``work_dir``; with ``reuse`` a directory that already holds
+    ``transforms.json`` is kept. Returns the dataset to train on and what
+    was done: seconds of each step that ran, the mono tool's report."""
+    from gstk_torch.data.raytraced import generate_raytraced_dataset
+    from gstk_torch.tools import make_mono_depth
+
+    data = Path(work_dir) / data_name(capture, False)
+    done: Dict = {"capture": capture}
+    if not (reuse and (data / "transforms.json").exists()):
+        t0 = time.perf_counter()
+        if capture == "ss3":
+            generate_sharded_dataset(data, n_views, img_wh, seed_points,
+                                     CAPTURES[capture], device=device)
+        else:
+            generate_raytraced_dataset(data, n_views, img_wh, seed_points,
+                                       supersample=CAPTURES[capture],
+                                       device=device)
+        done["capture_s"] = time.perf_counter() - t0
+        print(f"capture {capture}: {n_views} views at {img_wh[0]}x{img_wh[1]}"
+              f" in {done['capture_s']:.1f} s", flush=True)
+    if not mono:
+        return data, done
+    mono_dir = Path(work_dir) / data_name(capture, True)
+    if not (reuse and (mono_dir / "transforms.json").exists()):
+        t0 = time.perf_counter()
+        done["mono"] = make_mono_depth.main(["--data", str(data), "--out",
+                                             str(mono_dir)])
+        done["mono_s"] = time.perf_counter() - t0
+    return mono_dir, done
+
+
+def published_diff(ours: dict, path: Path) -> dict:
+    """The reference's gs-eval JSON ``path`` beside ``ours`` (``psnr``,
+    ``ssim`` and :func:`rings` of the per-view PSNR): its numbers and
+    ours minus its. A JSON without per-view numbers has no rings."""
+    ref = json.loads(Path(path).read_text())
+    res = ref["results"]
+    out = {"file": Path(path).name, "experiment_name": ref.get("experiment_name"),
+           "method_name": ref.get("method_name"),
+           "checkpoint": ref.get("checkpoint"),
+           "psnr": res["psnr"], "ssim": res["ssim"],
+           "d_psnr": ours["psnr"] - res["psnr"],
+           "d_ssim": ours["ssim"] - res["ssim"]}
+    per = ref.get("per_image", {}).get("psnr")
+    if not per:
+        out["rings"] = "not published (the JSON holds no per-view PSNR)"
+        return out
+    r = rings(per)
+    out.update(ring_means=r["ring_means"], min_view=r["min_view"],
+               min_view_index=r["min_view_index"],
+               d_ring_means=[a - b for a, b in zip(ours["ring_means"],
+                                                    r["ring_means"])],
+               d_min_view=ours["min_view"] - r["min_view"])
+    return out
+
+
+def published_line(diff: dict) -> str:
+    """One printed line of :func:`published_diff`."""
+    line = (f"vs {diff['file']}: PSNR {diff['psnr']:.3f} ({diff['d_psnr']:+.3f})"
+            f", SSIM {diff['ssim']:.4f} ({diff['d_ssim']:+.4f})")
+    if "ring_means" in diff:
+        line += (", rings " + " / ".join(f"{m:.2f} ({d:+.2f})" for m, d in zip(
+            diff["ring_means"], diff["d_ring_means"]))
+            + f", lowest view {diff['min_view']:.2f} ({diff['d_min_view']:+.2f})")
+    return line
 
 
 def _python_m(module: str, argv: List[str], log: Optional[Path] = None) -> int:
@@ -56,7 +216,7 @@ def _python_m(module: str, argv: List[str], log: Optional[Path] = None) -> int:
                                stderr=subprocess.STDOUT)
 
 
-def _lanes(events: List, start: int) -> List:
+def lane_spans(events: List, start: int) -> List:
     """(first step, lanes) spans from the capacity growths."""
     spans = [(0, start)]
     for step, msg in events:
@@ -66,7 +226,7 @@ def _lanes(events: List, start: int) -> List:
     return spans
 
 
-def _iter_ms_by_lanes(rows: List[Dict], spans: List) -> Dict[int, dict]:
+def iter_ms_by_lanes(rows: List[Dict], spans: List) -> Dict[int, dict]:
     """Median ``ITER_TRAIN_TIME`` (ms) of the log windows at each capacity,
     the windows that hold a growth or a stretch's first steps left out."""
     train = [r for r in rows if "Train Iter (time)" in r]
@@ -124,24 +284,26 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser("quality_workflow")
     ap.add_argument("--work-dir", type=Path, default=Path("runs/quality"))
     ap.add_argument("--out-dir", type=Path, default=Path("runs/quality/report"))
-    ap.add_argument("--method", default="gaussian-splatting")
+    add_config_args(ap)
     ap.add_argument("--iters", type=int, default=15000)
     ap.add_argument("--first-stretch", type=int, default=7500)
     ap.add_argument("--n-views", type=int, default=240)
     ap.add_argument("--width", type=int, default=800)
     ap.add_argument("--height", type=int, default=800)
     ap.add_argument("--seed-points", type=int, default=160_000)
-    ap.add_argument("--supersample", type=int, default=3)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
+    method, extra, cfg_name = resolve_config(ap, args, extra)
     t_start = time.perf_counter()
     dev = [] if args.device is None else ["--device", args.device]
     out = args.out_dir
     out.mkdir(parents=True, exist_ok=True)
     log = out / "train.log"
     log.write_text("")
-    report: Dict = {"extra_flags": extra}
+    report: Dict = {"config": cfg_name, "method": method,
+                    "capture": args.capture, "mono": args.mono,
+                    "extra_flags": extra}
     if args.device in (None, "cuda"):
         report["card"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -149,24 +311,19 @@ def main(argv=None) -> dict:
             timeout=60, check=True).stdout.strip()
         print(report["card"], flush=True)
 
-    data = args.work_dir / "raytraced240_ss3"
-    t0 = time.perf_counter()
-    generate_sharded_dataset(
-        data, args.n_views, (args.width, args.height), args.seed_points,
-        args.supersample, device=args.device)
-    report["capture_s"] = time.perf_counter() - t0
-    print(f"capture: {args.n_views} views at {args.width}x{args.height} "
-          f"ss {args.supersample} in {report['capture_s']:.1f} s", flush=True)
+    data, report["data"] = prepare_data(
+        args.work_dir, args.capture, args.mono, args.n_views,
+        (args.width, args.height), args.seed_points, args.device)
 
-    runs = args.work_dir / "runs"
-    run_dir = run_quality.run_dir(data, runs, args.method)
+    runs = args.work_dir / f"runs_{cfg_name}"
+    run_dir = run_quality.run_dir(data, runs, method)
     cfg = run_dir / "config.yml"
     train = lambda a: _python_m("gstk_torch.scripts.train", a, log)
     stretches, evals = [], {}
     for iters in (args.first_stretch, args.iters):
         t0 = time.perf_counter()
         rc = run_quality.main(
-            [str(data), str(runs), args.method, str(iters), *dev, "--",
+            [str(data), str(runs), method, str(iters), *dev, "--",
              *extra], train=train)
         wall = time.perf_counter() - t0
         if rc:
@@ -202,7 +359,12 @@ def main(argv=None) -> dict:
             entry["bit_for_bit"] = (res["psnr"] == trained[-1]["eval_psnr"]
                                     and res["ssim"] == trained[-1]["eval_ssim"])
         report["evals"][iters] = entry
-    shutil.copy(out / f"eval_{final}.json", out / "eval_240_ss3_torch.json")
+    result_json = out / f"eval_{cfg_name}_torch.json"
+    shutil.copy(out / f"eval_{final}.json", result_json)
+    if args.published is not None:
+        report["published"] = published_diff(report["evals"][final],
+                                             args.published)
+        print(published_line(report["published"]), flush=True)
 
     text = log.read_text()
     events = [(int(m.group(1)), m.group(2)) for m in
@@ -213,8 +375,8 @@ def main(argv=None) -> dict:
     report["train_done"] = re.findall(r"Training done in ([0-9.]+) min", text)
     n_seed = rows[0]["num_alive"]
     start_lanes = run_quality.start_capacity(int(n_seed))
-    report["iter_ms_by_lanes"] = _iter_ms_by_lanes(
-        rows, _lanes(events, start_lanes))
+    report["iter_ms_by_lanes"] = iter_ms_by_lanes(
+        rows, lane_spans(events, start_lanes))
     alive = [r for r in rows if "num_alive" in r]
     report["alive_end"] = alive[-1]["num_alive"]
     report["num_intersects_max"] = max(r.get("num_intersects", 0) for r in rows)
@@ -223,7 +385,7 @@ def main(argv=None) -> dict:
     probe = args.work_dir / "probe"
     shutil.rmtree(probe, ignore_errors=True)
     report["counted"] = counted_steps(
-        [*dev, *run_quality.recipe_flags(data, probe, args.method, final + 2),
+        [*dev, *run_quality.recipe_flags(data, probe, method, final + 2),
          "--load-dir", str(run_dir / "ckpts"), "--steps-per-save", "0",
          "--steps-per-eval-image", "0", "--steps-per-eval-all-images", "0",
          *extra], 2)
@@ -234,14 +396,16 @@ def main(argv=None) -> dict:
 
     t0 = time.perf_counter()
     ceil_rows = analyze_gt_aliasing.main([
-        str(args.supersample), "--save", "--eval-json",
-        str(out / "eval_240_ss3_torch.json"), "--save-path", str(gts),
-        "--n-views", str(args.n_views), "--width", str(args.width),
-        "--height", str(args.height),
+        str(CEILING_SS), "--save", "--eval-json", str(result_json),
+        "--save-path", str(gts), "--n-views", str(args.n_views), "--width",
+        str(args.width), "--height", str(args.height),
         "--eval-views", str(len(evals[final]["per_image"]["psnr"])),
         *dev])
-    report["ceiling"] = {"s": time.perf_counter() - t0, **rings(
-        [r[3] for r in ceil_rows])}
+    report["ceiling"] = {
+        "s": time.perf_counter() - t0,
+        "gt": ("this capture's own GT" if args.capture == "1spp" else
+               "a 1-spp capture of these views; this run trained on ss 3"),
+        **rings([r[3] for r in ceil_rows])}
     vs = eval_vs_supersampled.main([
         str(cfg), "--gts", str(gts), "--out", str(out / "eval_vs_ss.json"),
         *dev])

@@ -15,15 +15,19 @@ rasterizer and SSIM, but not in two places of the training step:
 
 This script replaces those products in the port with the same rounding
 (``torch.bfloat16`` round-to-nearest-even operands, f32 products and sums),
-makes the capture (:mod:`gstk_torch.tools.gen_raytraced_sharded`) unless
-``--work-dir`` has it, runs :mod:`gstk_torch.tools.run_quality` in this
-process, and scores the run with gs-eval twice: with the rounding (as
-gs-eval on a TPU would) and without it. It also prints, for the capture's
-train cameras at full resolution, how far the rounded ``fullmat`` moves
-the seed points on the screen.
+makes the capture and the configuration's dataset as
+:mod:`gstk_torch.tools.quality_workflow` makes them (``--capture``,
+``--mono``) unless ``--work-dir`` has them, runs
+:mod:`gstk_torch.tools.run_quality` with ``--method`` in this process, and
+scores the run with gs-eval twice: with the rounding (as gs-eval on a TPU
+would) and without it, each beside the reference's published JSON when
+``--published`` names it. It also prints, for the capture's train cameras
+at full resolution, how far the rounding moves the seed points on the
+screen. The exact functions are put back however the run ends.
 
 Usage:
-  python -m gstk_torch.tools.tpu_precision_probe --rounded cameras \\
+  python -m gstk_torch.tools.tpu_precision_probe --rounded fullmat \\
+      --capture 1spp --method co-gs --published eval_240_cogs.json \\
       --out-dir runs/probe [--iters 15000] [--device cpu] [-- flags]
 """
 
@@ -42,8 +46,7 @@ from gstk_torch.core import cameras
 from gstk_torch.models import vanilla
 from gstk_torch.ops import sh
 from gstk_torch.tools import run_quality
-from gstk_torch.tools.gen_raytraced_sharded import generate_sharded_dataset
-from gstk_torch.tools.quality_workflow import rings
+from gstk_torch.tools import quality_workflow as qw
 from gstk_torch.utils.math import projection_matrix
 
 _exact = {"cameras": vanilla.camera_matrices, "sh": vanilla.spherical_harmonics}
@@ -129,6 +132,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounded", default="cameras",
                     help="comma-separated: cameras (tinv and fullmat), "
                          "tinv, fullmat, sh")
+    qw.add_config_args(ap)
     ap.add_argument("--work-dir", type=Path, default=Path("runs/probe"))
     ap.add_argument("--out-dir", type=Path, default=Path("runs/probe/report"))
     ap.add_argument("--iters", type=int, default=15000)
@@ -141,47 +145,63 @@ def main(argv=None) -> dict:
     parts = [p for p in args.rounded.split(",") if p]
     if not set(parts) <= {"cameras", "tinv", "fullmat", "sh"}:
         ap.error(f"--rounded: unknown part in {parts}")
+    method, extra, cfg_name = qw.resolve_config(ap, args, extra)
     dev = [] if args.device is None else ["--device", args.device]
     from gstk_torch.scripts import eval as eval_cli
     from gstk_torch.scripts.train import main as train_main
 
     t0 = time.perf_counter()
-    data = args.work_dir / "raytraced240_ss3"
-    if not (data / "transforms.json").exists():
-        generate_sharded_dataset(data, args.n_views, (args.size, args.size),
-                                 args.seed_points, device=args.device)
+    data, prepared = qw.prepare_data(
+        args.work_dir, args.capture, args.mono, args.n_views,
+        (args.size, args.size), args.seed_points, args.device, reuse=True)
     products = [p for p in ("tinv", "fullmat") if p in parts or "cameras" in parts]
-    report = {"rounded": parts,
+    report = {"config": cfg_name, "method": method, "rounded": parts,
+              "extra_flags": extra, "data": prepared,
               "screen_shift": screen_shift(data, args.size, products)}
     print(f"rounded {products} vs exact: {report['screen_shift']}", flush=True)
 
     name = "_".join(parts) or "exact"
-    runs = args.work_dir / f"runs_{name}"
+    runs = args.work_dir / f"runs_{cfg_name}_{name}"
+    trainers = []
+
+    def train(argv):
+        trainers.append(train_main(argv))
+        return 0 if trainers[-1] else 1
+
     set_rounding(parts)
     try:
         rc = run_quality.main(
-            [str(data), str(runs), "gaussian-splatting", str(args.iters),
-             *dev, "--", *extra], train=lambda a: 0 if train_main(a) else 1)
+            [str(data), str(runs), method, str(args.iters), *dev, "--",
+             *extra], train=train)
         if rc:
             raise SystemExit(f"gs-train failed (rc {rc})")
-        cfg = run_quality.run_dir(data, runs, "gaussian-splatting") / "config.yml"
+        cfg = run_quality.run_dir(data, runs, method) / "config.yml"
         args.out_dir.mkdir(parents=True, exist_ok=True)
         for label, on in (("rounded", parts), ("exact", [])):
             set_rounding(on)
             res = eval_cli.main(["--load-config", str(cfg), "--output-path",
-                                 str(args.out_dir / f"eval_{name}_{label}.json"),
+                                 str(args.out_dir / f"eval_{cfg_name}_{name}_{label}.json"),
                                  "--skip-lpips", *dev])
-            report[f"eval_{label}"] = {
-                **{k: res["results"][k] for k in ("psnr", "ssim")},
-                **rings(res["per_image"]["psnr"])}
+            ev = {**{k: res["results"][k] for k in ("psnr", "ssim")},
+                  **qw.rings(res["per_image"]["psnr"])}
+            if args.published is not None:
+                ev["published"] = qw.published_diff(ev, args.published)
+                print(f"{label}: " + qw.published_line(ev["published"]),
+                      flush=True)
+            report[f"eval_{label}"] = ev
     finally:
         set_rounding([])
     rows = [json.loads(l) for l in (cfg.parent / "metrics.jsonl").open()]
     report["trainer_evals"] = [(r["step"], r["eval_psnr"], r["eval_ssim"])
                                for r in rows if "eval_psnr" in r]
     report["alive_end"] = [r["num_alive"] for r in rows if "num_alive" in r][-1]
+    events = [e for t in trainers for e in t.growth_events]
+    report["growth_events"] = events
+    report["iter_ms_by_lanes"] = qw.iter_ms_by_lanes(rows, qw.lane_spans(
+        events, run_quality.start_capacity(int(rows[0]["num_alive"]))))
     report["wall_s"] = time.perf_counter() - t0
-    (args.out_dir / f"probe_{name}.json").write_text(json.dumps(report, indent=1))
+    (args.out_dir / f"probe_{cfg_name}_{name}.json").write_text(
+        json.dumps(report, indent=1))
     print(json.dumps(report))
     return report
 

@@ -17,7 +17,16 @@ Tolerances:
     both sides), the supersampled GTs within 1e-12; the scores against
     them as gs-eval's parity tests hold them: PSNR rtol 1e-4, SSIM atol
     1e-4;
-  * the demo's printed losses and PSNRs equal (four decimals).
+  * the demo's printed losses and PSNRs equal (four decimals);
+  * ``quality_workflow``'s configurations: the ``1spp`` capture equal to
+    gstk_tpu's serial generator bit for bit (decoded PNGs,
+    ``transforms.json`` and ``sparse.ply`` bytes), its ``--mono`` variant
+    equal to ``tools/make_mono_depth.py``'s (depth PNGs, frames; scale and
+    shift within 1e-12), each configuration's gs-train arguments equal as
+    text to the reference's command in ``docs/RESULTS_240*.md`` (the data
+    and run paths aside), ``--published``'s differences and rings to the
+    float, the probe with ``--method co-gs --mono --rounded fullmat`` and
+    a CPU rehearsal of every configuration (64x64, 40 steps, run to rc 0).
 """
 
 import importlib.util
@@ -39,6 +48,7 @@ from gstk_torch.tools import (
     convert_lpips_weights,
     eval_vs_supersampled,
     gen_raytraced_sharded,
+    quality_workflow,
     run_quality,
     summarize_run,
 )
@@ -470,3 +480,232 @@ def test_precision_probe_rounds_only_what_it_names(monkeypatch):
     probe.set_rounding([])
     assert vanilla.camera_matrices is probe._exact["cameras"]
     assert vanilla.spherical_harmonics is probe._exact["sh"]
+
+
+# -- the published configurations ----------------------------------------
+
+SERIAL = dict(n_views=6, img_wh=(64, 64), seed_points=800)
+DOCS = REPO / "docs"
+
+
+def _same_files(a: Path, b: Path) -> list:
+    """Files of ``a`` that differ from ``b``'s: PNGs decoded (Pillow
+    writes the reference's), the rest as bytes; the file lists equal."""
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(b) for p in b.rglob("*")
+                           if p.is_file())
+    return [str(f) for f in files if (
+        not np.array_equal(read_png(a / f), read_png(b / f))
+        if f.suffix == ".png" else (a / f).read_bytes() != (b / f).read_bytes())]
+
+
+@pytest.fixture(scope="module")
+def serial_captures(tmp_path_factory):
+    """gstk_tpu's serial capture with ``tools/make_mono_depth.py``'s variant
+    of it, and ``quality_workflow.prepare_data``'s ``1spp --mono`` on the
+    CPU."""
+    from gstk_tpu.data.raytraced import generate_raytraced_dataset
+
+    root = tmp_path_factory.mktemp("serial")
+    ref = Path(generate_raytraced_dataset(root / "ref" / "raytraced240",
+                                          **SERIAL))
+    assert _reference("make_mono_depth").main([
+        "--data", str(ref), "--out", str(root / "ref" / "raytraced240_mono")
+    ]) is None
+    mono, done = quality_workflow.prepare_data(
+        root / "port", "1spp", True, SERIAL["n_views"], SERIAL["img_wh"],
+        SERIAL["seed_points"], "cpu")
+    return root / "ref", root / "port", mono, done
+
+
+def test_capture_1spp_is_the_reference_serial_capture(serial_captures):
+    ref, port, _, done = serial_captures
+    assert done["capture"] == "1spp" and done["capture_s"] > 0
+    assert not _same_files(ref / "raytraced240", port / "raytraced240")
+    assert len(list((port / "raytraced240" / "images").iterdir())) == 6
+
+
+def test_mono_is_the_reference_tools_variant(serial_captures):
+    ref, port, mono, done = serial_captures
+    assert mono == port / "raytraced240_mono"
+    assert done["mono"]["frames"] == 6
+    assert done["mono"]["median_rel_scale_error"] <= 0.02
+    a = json.loads((ref / mono.name / "transforms.json").read_text())
+    b = json.loads((mono / "transforms.json").read_text())
+    fa, fb = a.pop("frames"), b.pop("frames")
+    assert a == b and len(fa) == len(fb) == 6
+    for x, y in zip(fa, fb):
+        for key in ("scale", "shift"):
+            np.testing.assert_allclose(y[key], x[key], rtol=0, atol=1e-12)
+        assert ({k: v for k, v in x.items() if k not in ("scale", "shift")}
+                == {k: v for k, v in y.items() if k not in ("scale", "shift")})
+    assert not _same_files(ref / mono.name / "depths_mono", mono / "depths_mono")
+    for link in ("images", "sparse.ply"):
+        assert ((mono / link).resolve()
+                == (port / "raytraced240" / link).resolve())
+
+
+def _doc(name: str) -> str:
+    return " ".join((DOCS / name).read_text().split())
+
+
+def _reference_command(config: str):
+    """(data, method, iters, extra flags) of the reference's command for
+    ``config``, read from ``docs/RESULTS_240*.md``."""
+    if config == "240_mono_cogs":
+        m = re.search(r'EXTRA_FLAGS="([^"]+)" STALL_S=\d+ bash '
+                      r"tools/run_quality\.sh (\S+) \S+ (\S+) (\d+)`",
+                      _doc("RESULTS_240_MONO.md"))
+        return m.group(2), m.group(3), m.group(4), m.group(1).split()
+    if config == "240_cogs":
+        m = re.search(r"`tools/run_quality\.sh (\S+) \S+ (co-gs) (\d+)`",
+                      _doc("RESULTS_240.md"))
+        return m.group(1), m.group(2), m.group(3), []
+    m = re.search(r"`bash tools/run_quality\.sh (\S+)`", _doc("RESULTS_240.md"))
+    extra = []
+    if config == "240_aa":  # "otherwise the exact r3 recipe"
+        extra = re.search(r"\(a\) Antialiased.*?`(--model\.rasterize-mode "
+                          r"\w+)`", _doc("RESULTS_240_FOLLOWUPS.md")).group(1)
+        extra = extra.split()
+    return m.group(1), "gaussian-splatting", "15000", extra
+
+
+CONFIG_FLAGS = {  # quality_workflow's flags, gs-train flags after --
+    "240": ([], []),
+    "240_cogs": (["--method", "co-gs"], []),
+    "240_aa": ([], ["--model.rasterize-mode", "antialiased"]),
+    "240_mono_cogs": (["--mono"], []),
+}
+
+
+@pytest.mark.parametrize("config", list(CONFIG_FLAGS))
+def test_config_train_arguments_are_the_reference_commands(
+        config, tmp_path, monkeypatch):
+    """The gs-train arguments ``quality_workflow`` passes for each
+    configuration (``--first-stretch 15000``: the reference's one run)
+    against ``tools/run_quality.sh``'s launch of the documented command."""
+    flags, extra = CONFIG_FLAGS[config]
+    calls = []
+
+    def python_m(module, argv, log=None):
+        calls.append((module, argv))
+        return 0 if module == "gstk_torch.scripts.train" else 1
+
+    monkeypatch.setattr(quality_workflow, "_python_m", python_m)
+    with pytest.raises(SystemExit, match="gs-eval failed"):
+        quality_workflow.main([
+            "--device", "cpu", "--capture", "1spp", "--work-dir",
+            str(tmp_path), "--out-dir", str(tmp_path / "report"),
+            "--first-stretch", "15000", "--n-views", "6", "--width", "64",
+            "--height", "64", "--seed-points", "800", *flags, "--", *extra])
+    (module, argv), _ = calls
+    data, method, iters, ref_extra = _reference_command(config)
+    ours = tmp_path / Path(data).name
+    assert (ours / "transforms.json").exists()  # the capture's own name
+    runs = tmp_path / f"runs_{config}"
+    assert argv == ["--device", "cpu", *_shell_recipe(
+        str(ours), str(runs), method, iters), *ref_extra]
+    name = quality_workflow.config_name(
+        "1spp", method, "--mono" in flags, argv)
+    assert name == config
+    assert (DOCS.parent / f"eval_{name}.json").exists()
+
+
+def test_published_reports_differences_and_rings():
+    per = np.random.default_rng(3).uniform(15, 30, 30).tolist()
+    ours = {"psnr": float(np.mean(per)), "ssim": 0.95,
+            **quality_workflow.rings(per)}
+    ref = json.loads((REPO / "eval_240_aa.json").read_text())
+    got = quality_workflow.published_diff(ours, REPO / "eval_240_aa.json")
+    ref_per = np.asarray(ref["per_image"]["psnr"], np.float64)
+    ring = (np.arange(30) * 8) % 3
+    assert got["psnr"] == ref["results"]["psnr"]
+    assert got["d_psnr"] == ours["psnr"] - ref["results"]["psnr"]
+    assert got["d_ssim"] == 0.95 - ref["results"]["ssim"]
+    for r in range(3):
+        want = float(ref_per[ring == r].mean())
+        assert got["ring_means"][r] == want
+        mine = float(np.asarray(per)[ring == r].mean())
+        assert got["d_ring_means"][r] == mine - want
+    assert got["min_view"] == float(ref_per.min())
+    assert got["d_min_view"] == min(per) - float(ref_per.min())
+    np.testing.assert_allclose(got["ring_means"], [18.92, 24.29, 26.06],
+                               atol=0.005)  # docs/RESULTS_240_FOLLOWUPS.md
+    line = quality_workflow.published_line(got)
+    assert line.startswith("vs eval_240_aa.json: PSNR 23.091") and "rings" in line
+    bare = quality_workflow.published_diff(ours, REPO / "eval_240.json")
+    assert bare["psnr"] == 22.930316925048828 and "ring_means" not in bare
+    assert "not published" in bare["rings"]
+    assert "rings" not in quality_workflow.published_line(bare)
+
+
+def test_precision_probe_mono_cogs_rounds_only_fullmat(
+        serial_captures, tmp_path, monkeypatch):
+    """``--method co-gs --mono --rounded fullmat``: gs-train runs with
+    ``fullmat`` alone rounded and the mono flags, on the mono dataset;
+    when it fails the exact functions are back."""
+    from gstk_torch.core.cameras import Camera
+    from gstk_torch.models import vanilla
+    from gstk_torch.scripts import train as train_cli
+    from gstk_torch.tools import tpu_precision_probe as probe
+
+    monkeypatch.setattr(vanilla, "camera_matrices", vanilla.camera_matrices)
+    monkeypatch.setattr(vanilla, "spherical_harmonics",
+                        vanilla.spherical_harmonics)
+    _, port, mono, _ = serial_captures
+    seen = []
+
+    def failing_train(argv):
+        cam = Camera.create(77.0, 77.0, 32.0, 32.0, trt.view_pose(5, 6)[:3])
+        vm, fm = vanilla.camera_matrices(cam, 64, 64)
+        want = probe.rounded_camera_matrices(cam, 64, 64, ("fullmat",))
+        exact = probe._exact["cameras"](cam, 64, 64)
+        seen.append(argv)
+        assert torch.equal(vm, want[0]) and torch.equal(fm, want[1])
+        assert torch.equal(vm, exact[0]) and not torch.equal(fm, exact[1])
+        assert vanilla.spherical_harmonics is probe._exact["sh"]
+        raise RuntimeError("gs-train failed on purpose")
+
+    monkeypatch.setattr(train_cli, "main", failing_train)
+    with pytest.raises(RuntimeError, match="on purpose"):
+        probe.main(["--rounded", "fullmat", "--capture", "1spp", "--method",
+                    "co-gs", "--mono", "--work-dir", str(port), "--out-dir",
+                    str(tmp_path / "report"), "--n-views", "6", "--size",
+                    "64", "--seed-points", "800", "--iters", "40",
+                    "--device", "cpu"])
+    (argv,) = seen
+    assert argv[argv.index("--data") + 1] == str(mono)
+    assert argv[2] == "co-gs"
+    flags = " ".join(argv)
+    assert " ".join(quality_workflow.MONO_FLAGS) in flags
+    assert vanilla.camera_matrices is probe._exact["cameras"]
+    assert vanilla.spherical_harmonics is probe._exact["sh"]
+
+
+@pytest.mark.parametrize("config", list(CONFIG_FLAGS))
+def test_workflow_rehearsal(config, tmp_path):
+    """``python -m gstk_torch.tools.quality_workflow`` for each
+    configuration on the CPU at 64x64 (8 views, 40 steps in two
+    stretches; one thread, so gs-eval repeats the trainer's eval)."""
+    flags, extra = CONFIG_FLAGS[config]
+    out = tmp_path / "report"
+    proc = subprocess.run(
+        [sys.executable, "-m", "gstk_torch.tools.quality_workflow", "--device",
+         "cpu", "--capture", "1spp", "--work-dir", str(tmp_path), "--out-dir",
+         str(out), "--n-views", "8", "--width", "64", "--height", "64",
+         "--seed-points", "800", "--iters", "40", "--first-stretch", "20",
+         "--published", str(REPO / f"eval_{config}.json"), *flags, "--",
+         "--isect-capacity", "16384", *extra],
+        cwd=tmp_path, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    report = json.loads((out / "quality.json").read_text())
+    assert report["config"] == config
+    final = report["evals"]["40"]
+    assert final["bit_for_bit"] and np.isfinite(final["psnr"])
+    result = json.loads((out / f"eval_{config}_torch.json").read_text())
+    assert result["results"]["psnr"] == final["psnr"]
+    assert result["experiment_name"] == report["published"]["experiment_name"]
+    assert result["method_name"] == report["published"]["method_name"]
+    assert report["counted"]["steps"] == 2
+    assert report["ceiling"]["gt"] == "this capture's own GT"

@@ -7,6 +7,10 @@ gstk_tpu's ``init_scene`` and ``init_train_state`` make the state;
 the checkpoint's keys. Cases: black and white backgrounds (white puts
 every empty pixel on the tie of ``min(rgb, 1)``), ``micro_batch=2`` and
 ``frozen_groups=("means",)``; each runs three steps, compared after each.
+The antialiased mode (opacities times the EWA blur's compensation) runs
+the same three steps, and its loss gradients are held group by group, on
+a state whose log-scales reach sub-pixel sizes; an unknown mode raises in
+both packages.
 
 Tolerances:
   * loss, main_loss, psnr: rtol 1e-4;
@@ -67,7 +71,7 @@ GROUPS = ("means", "scales", "quats", "features_dc", "features_rest",
           "opacities")
 
 
-def _jax_state(seed=0):
+def _jax_state(seed=0, log_scales=(-3.0, -1.5)):
     rng = np.random.default_rng(seed)
     pts = np.stack([rng.uniform(-3, 3, N), rng.uniform(-2.25, 2.25, N),
                     rng.uniform(-8, -2, N)], -1).astype(np.float32)
@@ -77,7 +81,7 @@ def _jax_state(seed=0):
     # anisotropic scales, as after some training (kNN init is isotropic,
     # which leaves the rotations without a gradient), and a few dead lanes
     # among the live ones, beside the padding
-    scales = rng.uniform(-3.0, -1.5, (N, 3)).astype(np.float32)
+    scales = rng.uniform(*log_scales, (N, 3)).astype(np.float32)
     scene = scene._replace(scales=scene.scales.at[:N].set(jnp.asarray(scales)),
                            alive=scene.alive.at[::23].set(False))
     return jstep.init_train_state(scene)
@@ -265,6 +269,110 @@ def test_step_loss_gradients_match_jax(bg, tmp_path):
     for name, g in zip(params, grads):
         _grad_close(f"{bg} grad {name}", g.numpy(), jg[name])
     _grad_close(f"{bg} grad xys_offset", grads[-1].numpy(), jgx)
+
+
+# log-scales down to sub-pixel sizes: the antialiased mode's compensation
+# sqrt(det(cov) / det(cov + 0.3 I)) then ranges from near 0 to near 1
+AA_SCALES = (-6.0, -1.5)
+
+
+def _compensation(state, camera) -> np.ndarray:
+    """The port's antialiasing compensation of the lanes on screen."""
+    with torch.no_grad():
+        ins = [tvan.splat_inputs(state.scene, camera, H, W, sh_degree=SH,
+                                 config=tvan.VanillaConfig(rasterize_mode=m))
+               for m in ("antialiased", "classic")]
+    on = (ins[0]["radii"] > 0) & (ins[1]["opacities"] > 0)
+    return (ins[0]["opacities"][on] / ins[1]["opacities"][on]).numpy()
+
+
+def test_antialiased_step_matches_jax(tmp_path):
+    """``rasterize_mode="antialiased"``: three train steps from one state
+    against gstk_tpu's, as ``test_train_step_matches_jax`` holds them (the
+    opacities' moments carry the gradient through the compensation)."""
+    jstate = _jax_state(seed=2, log_scales=AA_SCALES)
+    flat0 = _flat(jstate, tmp_path)
+    state = tckpt.train_state_from_numpy(flat0, device="cpu")
+    comp = _compensation(state, _cameras(0)[1])
+    assert comp.min() < 0.05 and comp.max() > 0.9
+    assert 0.1 < (comp < 0.5).mean() < 0.9
+    jfn = jax.jit(jstep.make_train_step(
+        jvan.VanillaConfig(sh_degree=SH, background_color="black",
+                           rasterize_mode="antialiased"),
+        JRasterizeConfig(isect_capacity=ISECT), jopt.OptimizerConfig(),
+        H, W, sh_degree=SH))
+    tfn = tstep.make_train_step(
+        tvan.VanillaConfig(sh_degree=SH, background_color="black",
+                           rasterize_mode="antialiased"),
+        RasterizeConfig(isect_capacity=ISECT), topt.OptimizerConfig(),
+        H, W, sh_degree=SH)
+    cfg = topt.OptimizerConfig()
+    rng = np.random.default_rng(9)
+    before = flat0
+    for i in range(3):
+        jc, tc = _cameras(i)
+        gt = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+        lrs = {g: float(cfg.schedule_for(g)(torch.tensor(i))) for g in GROUPS}
+        jstate, jm = jfn(jstate, jc, jnp.asarray(gt), jax.random.PRNGKey(i))
+        state, tm = tfn(state, tc, torch.from_numpy(gt))
+        for k in ("loss", "main_loss", "psnr"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                       err_msg=f"step {i} {k}")
+        j_flat = _flat(jstate, tmp_path)
+        _compare_states(f"antialiased step {i}", tckpt.train_state_to_numpy(state),
+                        j_flat, before, lrs)
+        before = j_flat
+
+
+def test_antialiased_loss_gradients_match_jax(tmp_path):
+    """The antialiased step's loss and each group's gradient, by each
+    package's autodiff from one carried state: the opacity gradient
+    through the compensation, and the scales' and means' through it."""
+    jstate = _jax_state(seed=3, log_scales=AA_SCALES)
+    state = tckpt.train_state_from_numpy(_flat(jstate, tmp_path), device="cpu")
+    jc, tc = _cameras(2)
+    gt = np.random.default_rng(10).uniform(0, 1, (H, W, 3)).astype(np.float32)
+    bg = np.zeros(3, np.float32)
+    jcfg = jvan.VanillaConfig(sh_degree=SH, rasterize_mode="antialiased")
+    tcfg = tvan.VanillaConfig(sh_degree=SH, rasterize_mode="antialiased")
+    scene_j = jstate.scene
+
+    def jloss(params):
+        scn = scene_j.with_params(params)
+        out = jvan.render_scene(
+            scn, jc, H, W, sh_degree=SH, background=jnp.asarray(bg),
+            config=jcfg, raster_config=JRasterizeConfig(isect_capacity=ISECT))
+        return sum(jvan.rgb_loss(out["rgb"], jnp.asarray(gt), scn, jcfg).values())
+
+    jval, jg = jax.value_and_grad(jloss)(scene_j.params())
+    out = tvan.render_scene(
+        state.scene, tc, H, W, sh_degree=SH, background=torch.from_numpy(bg),
+        config=tcfg, raster_config=RasterizeConfig(isect_capacity=ISECT))
+    loss = sum(tvan.rgb_loss(out["rgb"], torch.from_numpy(gt), state.scene,
+                             tcfg).values())
+    params = state.scene.params()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    np.testing.assert_allclose(float(loss.detach()), float(jval), rtol=1e-4)
+    for name, g in zip(params, grads):
+        _grad_close(f"antialiased grad {name}", g.numpy(), jg[name])
+    assert np.abs(grads[list(params).index("opacities")].numpy()).max() > 0
+
+
+def test_unknown_rasterize_mode_raises(tmp_path):
+    """Both packages refuse a mode other than classic and antialiased."""
+    jstate = _jax_state()
+    state = tckpt.train_state_from_numpy(_flat(jstate, tmp_path), device="cpu")
+    jc, tc = _cameras(0)
+    with pytest.raises(ValueError, match="Unknown rasterize_mode"):
+        jvan.render_scene(
+            jstate.scene, jc, H, W, sh_degree=SH, background=jnp.zeros(3),
+            config=jvan.VanillaConfig(rasterize_mode="mip"),
+            raster_config=JRasterizeConfig(isect_capacity=ISECT))
+    with pytest.raises(ValueError, match="Unknown rasterize_mode"):
+        tvan.render_scene(
+            state.scene, tc, H, W, sh_degree=SH, background=torch.zeros(3),
+            config=tvan.VanillaConfig(rasterize_mode="mip"),
+            raster_config=RasterizeConfig(isect_capacity=ISECT))
 
 
 def test_train_step_options_and_later_slices(tmp_path):

@@ -416,10 +416,12 @@ sys.argv = ["viewer", "--load-config", {str(run_dir / "config.yml")!r},
 runpy.run_module("gstk_torch.scripts.viewer", run_name="__main__")
 """], cwd=REPO, text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
-        port = None
+        # gs-viewer serves from "Viewer running at ..." on, and publishes
+        # the scene and its stats only then: wait for the line after it
+        port, loaded = None, False
         deadline = time.monotonic() + 120
         lines = []
-        while port is None and time.monotonic() < deadline:
+        while not loaded and time.monotonic() < deadline:
             line = proc.stdout.readline()
             if not line:
                 break
@@ -427,7 +429,9 @@ runpy.run_module("gstk_torch.scripts.viewer", run_name="__main__")
             found = re.search(r"http://localhost:(\d+)", line)
             if found:
                 port = int(found.group(1))
-        assert port is not None, "".join(lines)
+            loaded = port is not None and line.startswith(
+                "Viewer running; Ctrl-C to exit.")
+        assert port is not None and loaded, "".join(lines)
         base = f"http://127.0.0.1:{port}"
         assert b"gstk_torch viewer" in _get(base, "/")
         assert json.loads(_get(base, "/stats")) == {"step": 77}
