@@ -244,19 +244,37 @@ line:
      trainer's eval equal to the rounded gs-eval), after which the exact
      camera and SH functions are back in place; the counters reset just
      before each run and read just after;
+  20. the largest operating points: (a) ``bench_render_4k``'s point at
+     full size (3840x2160, 300k Gaussians, ``bands=0``, 2^20 a band): 13
+     bands, K1 and K3 13 launches each a frame, K2 and K4 none, the frame
+     against the same frame through the plain twins on every band (rtol
+     1e-3, atol 1e-4, 0.1% outside), each band's intersection count equal
+     to the CPU's count of the same projection, no band truncated, its
+     device ms; (b) a continuation at 160x160: gs-train to a checkpoint
+     at a saturated capacity with the split window closed, then resumed
+     with a four times larger ``--max-capacity`` and the split window
+     reopened: the capacity grows on the first metrics window, the resumed
+     ``config.yml`` holds the new flags, gs-eval equals the trainer's eval
+     bit for bit; (c) the two 30k configurations (``--iters 30000`` on
+     the 1-spp capture with ``--max-capacity 2097152``, and on the ss 3
+     capture with its continuation) at a small size through
+     ``quality_workflow`` (80 steps in four stretches standing for the
+     recipe's 7500) and the probe, K1-K4 once a step;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
 bounds, phase 14's launches under ``launches_methods``, phase 15's
 under ``launches_data_viewer``, phase 16's under
 ``launches_process_data``, phase 17's under ``launches_parallel``, per
 rank and path, phase 18's under ``launches_quality`` and phase 19's, a
 step of each configuration and each probe run, under
-``launches_configs``; P1-P3:
+``launches_configs``, phase 20's 4K frame under ``launches_4k`` and its
+continuation and 30k runs under ``launches_30k``; P1-P3:
 launches in phase 12's run of the probes; phase 11's numbers under
 ``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
 view and a frame included, under ``backend``, phase 14's under
 ``methods``, phase 15's under ``data_viewer``, phase 16's under
 ``process_data``, phase 17's under ``parallel``, phase 18's under
-``quality``, phase 19's under ``configs``), the card's name and
+``quality``, phase 19's under ``configs``, phase 20's under
+``largest``), the card's name and
 power limit, and the last line ``{"ok":
 true, "device": {...}}``.
 Kernel times are torch.profiler's device time; a kernel it records no
@@ -366,6 +384,7 @@ from gstk_torch.scripts.train import main as train_main
 from gstk_torch.tools import (
     ablate_fwd,
     bench_dynrow,
+    bench_render_4k,
     convert_lpips_weights,
     gen_raytraced_sharded,
     kernel_device_ms,
@@ -492,6 +511,18 @@ CONFIGS = {  # quality_workflow / probe flags, gs-train flags
     "240_mono_cogs": (["--mono"], []),
     "240_aa": ([], ["--model.rasterize-mode", "antialiased"]),
 }
+# phase 20: the 4K frame's timed repeats; the continuation's seed cloud
+# (7,500 seeds fill 0.92 of 8192 lanes at headroom 1, past the 0.85 growth
+# threshold), its two gs-train runs and the flags the resume changes; the
+# 30k configurations at a small size, four stretches of 20 steps
+R4K_ITERS = 5
+CONT_SEEDS, CONT_STEPS = 7500, (20, 40)
+CONT_CAPACITY = 8192
+CONFIGS_30K = {  # capture, quality_workflow / probe flags, gs-train flags
+    "240_30k": ("1spp", [], ["--max-capacity", "2097152"]),
+    "240_ss3_30k": ("ss3", [], []),
+}
+C30_ITERS, C30_STRETCH = 80, 20
 VGG_LAYERS = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
 REPO = Path(__file__).resolve().parent
 
@@ -962,6 +993,7 @@ def run(ckpt_dir: str) -> int:
     parallel_numbers = parallel_phase(Path(ckpt_dir), counters, trainer_numbers)
     quality_numbers = quality_phase(Path(ckpt_dir), counters)
     configs_numbers = configs_phase(Path(ckpt_dir), counters)
+    largest_numbers = largest_phase(Path(ckpt_dir), counters)
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -1009,6 +1041,10 @@ def run(ckpt_dir: str) -> int:
         entry["launches_quality"] = quality_numbers["launches"][name]
         entry["launches_configs"] = {
             run: n[name] for run, n in configs_numbers["launches"].items()}
+        entry["launches_4k"] = largest_numbers["launches"]["4k_frame"][name]
+        entry["launches_30k"] = {
+            run: n[name] for run, n in largest_numbers["launches"].items()
+            if run != "4k_frame"}
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
@@ -1031,6 +1067,7 @@ def run(ckpt_dir: str) -> int:
                       "parallel": parallel_numbers,
                       "quality": quality_numbers,
                       "configs": configs_numbers,
+                      "largest": largest_numbers,
                       "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3788,29 +3825,30 @@ def aa_step_check(counters) -> dict:
 
 
 def config_runs(work_dir: Path, name: str, flags: list, extra: list,
-                counters) -> dict:
-    """19(c): configuration ``name`` on the 1-spp capture at 18(a)'s size:
+                counters, capture: str = "1spp", iters: int = C_ITERS,
+                stretch: int = C_FIRST) -> dict:
+    """19(c): configuration ``name`` on the ``capture`` at 18(a)'s size:
     ``quality_workflow`` (exact cameras; gs-train and gs-eval in child
-    processes, two stretches to ``C_ITERS``; its counted steps here), then
-    the probe with ``fullmat`` rounded (gs-train in process,
-    ``C_ITERS`` steps); after the probe the exact camera and SH functions
-    are back in place."""
-    common = ["--capture", "1spp", "--work-dir", str(work_dir), "--n-views",
+    processes, stretches of ``stretch`` steps to ``iters``; its counted
+    steps here), then the probe with ``fullmat`` rounded (gs-train in
+    process, ``iters`` steps); after the probe the exact camera and SH
+    functions are back in place."""
+    common = ["--capture", capture, "--work-dir", str(work_dir), "--n-views",
               str(Q_VIEWS), "--seed-points", str(Q_SEEDS), "--iters",
-              str(C_ITERS), "--device", DEVICE, *flags]
+              str(iters), "--stretch", str(stretch), "--device", DEVICE,
+              *flags]
     for f in counters:
         f.launches = 0
     t0 = time.perf_counter()
     rep = quality_workflow.main([
-        *common, "--out-dir", str(work_dir / "report"), "--first-stretch",
-        str(C_FIRST), "--width", str(Q_SIDE), "--height", str(Q_SIDE), "--",
-        *extra])
+        *common, "--out-dir", str(work_dir / "report"), "--width",
+        str(Q_SIDE), "--height", str(Q_SIDE), "--", *extra])
     exact_s = time.perf_counter() - t0
     counted = rep["counted"]
     step = {k: v // counted["steps"] for k, v in counted["launches"].items()}
     evals = rep["evals"]
     assert rep["config"] == name, rep["config"]
-    assert evals[C_ITERS]["bit_for_bit"], evals
+    assert evals[iters]["bit_for_bit"], evals
     assert all(math.isfinite(e["psnr"]) for e in evals.values()), evals
     assert all(n == counted["bands"] for n in step.values()), counted
     for f in counters:
@@ -3824,7 +3862,7 @@ def config_runs(work_dir: Path, name: str, flags: list, extra: list,
     restored = (vanilla_mod.camera_matrices is cameras_mod.camera_matrices
                 and vanilla_mod.spherical_harmonics is sh_mod.spherical_harmonics)
     final = probe["trainer_evals"][-1]
-    print(f"{name}: quality_workflow {C_ITERS} steps in {exact_s:.1f} s, "
+    print(f"{name}: quality_workflow {iters} steps in {exact_s:.1f} s, "
           f"gs-eval {[e['psnr'] for e in evals.values()]} (the last = the "
           f"trainer's), "
           f"launches a step {step}; probe (fullmat rounded) {probe_s:.1f} s, "
@@ -3833,18 +3871,161 @@ def config_runs(work_dir: Path, name: str, flags: list, extra: list,
           f"{probe['eval_exact']['psnr']!r}), launches {probe_launches}; "
           f"exact functions back: {restored}")
     assert restored, "the probe left its rounding in place"
-    assert probe["config"] == name and final[0] == C_ITERS
+    assert probe["config"] == name and final[0] == iters
     assert final[1] == probe["eval_rounded"]["psnr"]
     assert probe["screen_shift"]["max_px"] > 0
-    assert probe_launches["composite_tiles_bwd"] >= C_ITERS, probe_launches
+    assert probe_launches["composite_tiles_bwd"] >= iters, probe_launches
     assert probe_launches["composite_tiles_bwd"] == probe_launches["segment_sum_sorted"]
     return {"exact_s": exact_s, "probe_s": probe_s,
             "exact_psnr": [e["psnr"] for e in evals.values()],
             "rounded_psnr": probe["eval_rounded"]["psnr"],
             "rounded_scored_exact_psnr": probe["eval_exact"]["psnr"],
             "screen_shift": probe["screen_shift"],
+            "stretches": [st["iters"] for st in rep["stretches"]],
+            "stretch_flags": [st["flags"] for st in rep["stretches"]],
             "launches": {f"{name}_step": step,
-                         f"{name}_probe_{C_ITERS}_steps": probe_launches}}
+                         f"{name}_probe_{iters}_steps": probe_launches}}
+
+
+def largest_phase(work_dir: Path, counters) -> dict:
+    """Phase 20: the reference's largest operating points: the 4K banded
+    frame at full size against the plain twins, a continuation with a
+    larger capacity and a reopened split window, and the two 30k
+    configurations at a small size; the counters reset just before each
+    run and read just after."""
+    phase("20 largest points: the 4K banded frame vs the plain twins, a "
+          "continuation that grows and reopens the split window, the 30k "
+          "configurations through quality_workflow and the probe")
+    t0 = time.perf_counter()
+    frame = frame_4k_check(counters)
+    launches = {"4k_frame": frame.pop("launches")}
+    cont = continuation_check(work_dir / "continuation", counters)
+    launches["continuation"] = cont.pop("launches")
+    runs = {}
+    for name, (capture, flags, extra) in CONFIGS_30K.items():
+        runs[name] = config_runs(work_dir / f"cfg_{name}", name, flags, extra,
+                                 counters, capture, C30_ITERS, C30_STRETCH)
+        launches.update(runs[name].pop("launches"))
+    assert runs["240_ss3_30k"]["stretch_flags"][2][-4:] == \
+        quality_workflow.SS3_CONTINUATION, runs["240_ss3_30k"]
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    loaded = [m for m in ("PIL", "cv2", "yaml") if m in sys.modules]
+    assert not loaded, f"phase 20 imported {loaded}"
+    wall_s = time.perf_counter() - t0
+    print(f"phase 20 wall time {wall_s:.1f} s")
+    return {"frame_4k": frame, "continuation": cont, "runs": runs,
+            "launches": launches, "wall_s": wall_s}
+
+
+def frame_4k_check(counters) -> dict:
+    """20(a): ``bench_render_4k``'s frame through K1 and K3, a band at a
+    time, against the same frame through the plain twins; each band's
+    count against the CPU's count of the CPU's projection."""
+    dev = torch.device(DEVICE)
+    cam, arrays = bench_render_4k.scene_arrays()
+    proj = bench_render_4k.project(cam, arrays, dev)
+    torch.cuda.synchronize()
+    for f in counters:
+        f.launches = 0
+    img, alpha, info = bench_render_4k.frame(proj, arrays, cam)
+    torch.cuda.synchronize()
+    launches = launches_of(counters)
+    bands = [int(x) for x in info["band_intersects"].cpu()]
+    plain = dataclasses.replace(bench_render_4k.CONFIG, backend="plain")
+    t0 = time.perf_counter()
+    img_p, alpha_p, info_p = bench_render_4k.frame(proj, arrays, cam, plain)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    outside = [assert_close(f"4K frame {k} vs the plain twins", a, b,
+                            **PARITY, max_outside=0.001)
+               for k, a, b in (("rgb+depth", img, img_p),
+                               ("alpha", alpha, alpha_p))]
+    cpu = bench_render_4k.band_intersections(
+        bench_render_4k.project(cam, arrays, "cpu"), arrays, cam)
+    ms = bench_render_4k.device_ms(
+        lambda: bench_render_4k.frame(proj, arrays, cam), R4K_ITERS)
+    total = int(proj.num_tiles_hit.long().sum())
+    print(f"4K frame: {len(bands)} bands of {bands} intersections (CPU "
+          f"{cpu}; plain {[int(x) for x in info_p['band_intersects'].cpu()]})"
+          f", total {total} (3-sigma squares), launches {launches}; "
+          f"outside tolerance {outside} of {img.numel()} / {alpha.numel()}; "
+          f"device ms {[round(x, 3) for x in ms]}; the plain frame "
+          f"{plain_s:.2f} s")
+    assert len(bands) == 13 and bands == cpu, (bands, cpu)
+    assert max(bands) <= bench_render_4k.ISECT_CAPACITY
+    assert launches["composite_tiles_fwd"] == launches["segment_broadcast"] == 13
+    assert launches["composite_tiles_bwd"] == launches["segment_sum_sorted"] == 0
+    assert bool(torch.isfinite(img).all())
+    return {"bands": bands, "total_intersections": total,
+            "outside": outside, "ms": ms, "ms_median": statistics.median(ms),
+            "plain_s": plain_s, "launches": launches}
+
+
+def continuation_check(work_dir: Path, counters) -> dict:
+    """20(b): gs-train on the 1-spp capture at 160x160 with 7,500 seeds in
+    8192 lanes, ``--max-capacity`` 8192 (saturated) and the split window
+    closed at the last step, then resumed with four times the capacity
+    and the split window reopened (densifying at every refine): the
+    capacity grows on the resume's first metrics window, children are
+    placed, the resumed ``config.yml`` holds the new flags and gs-eval of
+    its checkpoint equals the trainer's eval bit for bit."""
+    data, _ = quality_workflow.prepare_data(
+        work_dir, "1spp", False, Q_VIEWS, (Q_SIDE, Q_SIDE), Q_SEEDS, DEVICE)
+    write_seed_cloud(data, CONT_SEEDS)
+    base = [
+        "--device", DEVICE, "gaussian-splatting", "--data", str(data),
+        "--output-dir", str(work_dir / "runs"), "--experiment-name", "cont",
+        "--steps-per-eval-image", "0", "--steps-per-eval-all-images", "0",
+        "--initial-capacity-headroom", "1.0", "--model.num-downscales", "0",
+        "--model.warmup-length", "5", "--model.refine-every", "5",
+        "--model.densify-grad-thresh", "0", "--isect-capacity", "1048576",
+        "--dataparser.eval-mode", "interval", "--dataparser.eval-interval", "3"]
+    first = train_main([*base, "--max-num-iterations", str(CONT_STEPS[0]),
+                        "--max-capacity", str(CONT_CAPACITY),
+                        "--model.stop-split-at", str(CONT_STEPS[0])])
+    alive_first = int(first.state.scene.alive.sum())
+    reopened = ["--max-capacity", str(4 * CONT_CAPACITY),
+                "--model.stop-split-at", "1000"]
+    for f in counters:
+        f.launches = 0
+    second = train_main([*base, "--max-num-iterations", str(CONT_STEPS[1]),
+                         "--load-dir", str(first.run_dir / "ckpts"),
+                         *reopened])
+    torch.cuda.synchronize()
+    launches = launches_of(counters)
+    cfg = load_config(second.run_dir / "config.yml")
+    rows = [json.loads(line) for line in
+            (second.run_dir / "metrics.jsonl").open()]
+    final = [r for r in rows if "eval_psnr" in r][-1]
+    res = eval_cli.main(["--load-config", str(second.run_dir / "config.yml"),
+                         "--output-path", str(work_dir / "eval.json"),
+                         "--skip-lpips", "--device", DEVICE])["results"]
+    grew = [e for e in second.growth_events if "Gaussian capacity" in e[1]]
+    alive = int(second.state.scene.alive.sum())
+    print(f"continuation: {alive_first} alive in {first.state.scene.capacity}"
+          f" lanes at step {CONT_STEPS[0]} (events {first.growth_events}); "
+          f"resumed with {reopened}: events {second.growth_events}, "
+          f"{alive} alive in {second.state.scene.capacity} lanes at step "
+          f"{CONT_STEPS[1]}; config.yml max_capacity {cfg.max_capacity}, "
+          f"stop_split_at {cfg.model.stop_split_at}; gs-eval "
+          f"{res['psnr']!r} / {res['ssim']!r}, the trainer's "
+          f"{final['eval_psnr']!r} / {final['eval_ssim']!r}; launches "
+          f"{launches}")
+    assert first.state.scene.capacity == CONT_CAPACITY
+    assert alive_first > 0.85 * CONT_CAPACITY
+    assert grew and grew[0][0] == CONT_STEPS[0], second.growth_events
+    assert grew[0][1].endswith(f"{CONT_CAPACITY} -> {2 * CONT_CAPACITY}")
+    assert alive > alive_first, "the reopened window placed no children"
+    assert (cfg.max_capacity, cfg.model.stop_split_at) == (4 * CONT_CAPACITY,
+                                                           1000)
+    assert (res["psnr"], res["ssim"]) == (final["eval_psnr"],
+                                          final["eval_ssim"])
+    steps = CONT_STEPS[1] - CONT_STEPS[0]
+    assert launches["composite_tiles_bwd"] == launches["segment_sum_sorted"] == steps
+    return {"alive": [alive_first, alive], "events": second.growth_events,
+            "capacity": second.state.scene.capacity,
+            "psnr": res["psnr"], "launches": launches}
 
 
 def trace(label, fn, top: int = 8, show: tuple = ()) -> dict:

@@ -143,7 +143,8 @@ def render_splats(
 ) -> Dict[str, torch.Tensor]:
     """Rasterize :func:`splat_inputs`' outputs with RGB and depth in one
     pass: rgb (H,W,3), depth (H,W), alpha (H,W), background, radii,
-    visible, num_intersects."""
+    visible, num_intersects (the most of a band) and band_intersects (each
+    band's)."""
     bg4 = torch.cat([background, background.new_zeros(1)])  # depth bg = 0
     img4, alpha, raster_info = rasterize(
         **inputs, img_height=img_height, img_width=img_width,
@@ -167,6 +168,7 @@ def render_splats(
         "radii": inputs["radii"],
         "visible": inputs["radii"] > 0,
         "num_intersects": raster_info["num_intersects"],
+        "band_intersects": raster_info["band_intersects"],
     }
 
 

@@ -104,6 +104,26 @@ def tile_counts(xys, ext, alive, tile_bounds, block_width) -> torch.Tensor:
     return torch.where(alive, area, 0).to(torch.int32)
 
 
+def band_rows(img_height: int, img_width: int, config: RasterizeConfig):
+    """Each band's (first pixel row, tile rows, pixel rows); ``bands=0``
+    gives one band per ~640k pixels."""
+    bw = config.block_width
+    tiles_y_total = (img_height + bw - 1) // bw
+    bands = config.bands
+    if bands == 0:  # auto: one band per ~640k pixels
+        bands = max(1, -(-img_height * img_width // 640_000))
+    bands = min(bands, tiles_y_total)
+    rows_per = -(-tiles_y_total // bands)
+    out = []
+    for b in range(bands):
+        rows_b = min(rows_per, tiles_y_total - b * rows_per)
+        if rows_b <= 0:
+            break
+        y0 = b * rows_per * bw
+        out.append((y0, rows_b, min(img_height - y0, rows_b * bw)))
+    return out
+
+
 def rasterize(
     xys: torch.Tensor,
     depths: torch.Tensor,
@@ -120,7 +140,8 @@ def rasterize(
 ):
     """Rasterize projected Gaussians; returns ``(img (H, W, ch), alpha
     (H, W))`` and, with ``return_info``, ``{"num_intersects": max over
-    bands}``. Any channel count composites in one pass (callers concatenate
+    bands, "band_intersects": (bands,) each band's count}`` (device
+    tensors: reading them is the caller's one sync). Any channel count composites in one pass (callers concatenate
     depth as a 4th channel); the CUDA kernel takes 3 or 4.
 
     ``num_tiles_hit`` is accepted for API compatibility; tile footprints are
@@ -130,24 +151,13 @@ def rasterize(
         raise ValueError(f"RasterizeConfig.backend {config.backend!r} not in {BACKENDS}")
     bw = config.block_width
     tiles_x = (img_width + bw - 1) // bw
-    tiles_y_total = (img_height + bw - 1) // bw
-    bands = config.bands
-    if bands == 0:  # auto: one band per ~640k pixels
-        bands = max(1, -(-img_height * img_width // 640_000))
-    bands = min(bands, tiles_y_total)
-    rows_per = -(-tiles_y_total // bands)
+    bands = band_rows(img_height, img_width, config)
 
     ext, ext_alive = footprints(radii, conics, opacities, config)
 
     band_imgs, band_ts, band_isects = [], [], []
-    for b in range(bands):
-        r0 = b * rows_per
-        rows_b = min(rows_per, tiles_y_total - r0)
-        if rows_b <= 0:
-            break
-        y0 = r0 * bw
-        band_h = min(img_height - y0, rows_b * bw)
-        if bands == 1:
+    for y0, rows_b, band_h in bands:
+        if len(bands) == 1:
             xys_b = xys
         else:
             shift = torch.tensor([0.0, float(y0)], device=xys.device)
@@ -168,7 +178,9 @@ def rasterize(
     alpha = 1.0 - final_t_img
     if return_info:
         # max over bands: the growth signal for the static capacity
-        return img, alpha, {"num_intersects": torch.stack(band_isects).max()}
+        per_band = torch.stack(band_isects)
+        return img, alpha, {"num_intersects": per_band.max(),
+                            "band_intersects": per_band}
     return img, alpha
 
 

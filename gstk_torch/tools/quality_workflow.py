@@ -2,19 +2,20 @@
 of the raytraced scene (``--capture``: the band-limited ``ss3`` one of
 :mod:`gstk_torch.tools.gen_raytraced_sharded`, or the ``1spp`` one of
 :mod:`gstk_torch.data.raytraced`), with ``--mono`` its mono-depth variant
-(:mod:`gstk_torch.tools.make_mono_depth`), the 15k recipe
-(:mod:`gstk_torch.tools.run_quality`) in two resumed stretches, gs-eval
-after each, the trainer's summary (:mod:`gstk_torch.tools.summarize_run`),
-the per-ring table, the ceiling analysis
-(:mod:`gstk_torch.tools.analyze_gt_aliasing` and
-:mod:`gstk_torch.tools.eval_vs_supersampled`) and one counted train step
-from the final checkpoint (K1-K4 launches a step at the run's last band
-count). With ``--published`` the report sets the reference's gs-eval JSON
-beside the final result: PSNR, SSIM, the per-ring means and the lowest
-view, and the difference of each.
+(:mod:`gstk_torch.tools.make_mono_depth`), the recipe
+(:mod:`gstk_torch.tools.run_quality`) in resumed stretches of 7500 steps
+(the recipe's ``--steps-per-eval-all-images``), gs-eval after each, the
+trainer's summary (:mod:`gstk_torch.tools.summarize_run`), the per-ring
+table, the ceiling analysis (:mod:`gstk_torch.tools.analyze_gt_aliasing`
+and :mod:`gstk_torch.tools.eval_vs_supersampled`) and one counted train
+step from the final checkpoint (K1-K4 launches a step at the run's last
+band count). With ``--published`` the report sets the reference's gs-eval
+JSON beside the final result (PSNR, SSIM, the per-ring means and the
+lowest view, and the difference of each) and, where the reference's docs
+give it, its eval curve beside each stretch's gs-eval.
 
-Each of the reference's published 15k runs is one command (flags after
-``--`` go to gs-train after the recipe's):
+Each of the reference's published runs is one command (flags after ``--``
+go to gs-train after the recipe's):
 
   =============================  ==========================================
   ``eval_240_ss3.json``          (the defaults)
@@ -25,18 +26,36 @@ Each of the reference's published 15k runs is one command (flags after
   ``eval_240_mono_cogs.json``    ``--capture 1spp --mono`` (co-gs with the
                                  four mono flags of
                                  ``docs/RESULTS_240_MONO.md``)
+  ``eval_240_30k.json``          ``--capture 1spp --iters 30000 --
+                                 --max-capacity 2097152``
+                                 (``docs/RESULTS_240_30K.md``)
+  ``eval_240_ss3_30k.json``      ``--iters 30000``: the 15k recipe to 15k,
+                                 then that checkpoint resumed with
+                                 ``--max-capacity 2097152
+                                 --model.stop-split-at 25000`` to 30k
+                                 (``docs/RESULTS_240_FOLLOWUPS.md`` (c))
   =============================  ==========================================
+
+The ss 3 30k run is the reference's continuation: its stretches past 15k
+add :data:`SS3_CONTINUATION` after the recipe's flags (the later flag
+wins), as the reference resumed its 15k checkpoint.
 
 The capture's directory is named as the reference named it
 (``raytraced240``, ``raytraced240_ss3``, ``raytraced240_mono``), so the run's
 ``experiment_name`` is the reference's; the final gs-eval is copied to
-``eval_<cfg>_torch.json``, ``<cfg>`` the reference's name for the run.
+``eval_<cfg>_torch.json``, ``<cfg>`` the reference's name for the run
+(``_30k`` for a run past 15k steps). Each configuration trains in its own
+``runs_<cfg>``, so a 30k run never resumes a 15k run's checkpoint, and a
+rehearsal in ``runs_<cfg>_stretch<n>``; a capture is reused only if it
+was made with the same arguments.
 
 Everything goes under ``--work-dir``; what a report needs (the gs-eval
 JSONs, ``metrics.jsonl``, the trainer's log, ``report.md`` and
 ``quality.json``, whose last copy is also printed) under ``--out-dir``.
-Both stretches always run; a call cut short leaves checkpoints that
-:mod:`gstk_torch.tools.run_quality` resumes from.
+A call cut short is picked up by the same command: it keeps the capture,
+resumes the run from its newest checkpoint, keeps the gs-eval of every
+stretch an earlier call finished, appends to ``train.log``, and the
+report says which call ran each stretch.
 
 The ceiling analysis compares the views' 1-spp GT with a 3x3 supersampled
 render, so it is the ceiling of the ``1spp`` capture's own GT; on the
@@ -46,10 +65,12 @@ this run trained on, and the report says which.
 Usage (on the card):
   python -m gstk_torch.tools.quality_workflow --capture 1spp \\
       --published eval_240.json --out-dir runs/quality/report
-CPU rehearsal at a small size:
+CPU rehearsal at a small size (a ``--stretch`` that divides 7500 stands
+for the recipe's 7500 steps, so ``--iters 80 --stretch 20`` rehearses a
+30k configuration and its continuation starts at step 40):
   python -m gstk_torch.tools.quality_workflow --device cpu --n-views 24 \\
       --width 64 --height 64 --seed-points 2000 --iters 40 \\
-      --first-stretch 20 -- --isect-capacity 16384
+      --stretch 20 -- --isect-capacity 16384
 """
 
 from __future__ import annotations
@@ -71,6 +92,26 @@ from gstk_torch.tools import run_quality
 from gstk_torch.tools.gen_raytraced_sharded import generate_sharded_dataset
 
 EVAL_INTERVAL = 8  # the recipe's eval split
+STRETCH = 7500  # the recipe's --steps-per-eval-all-images
+RECIPE_ITERS = 15000
+# docs/RESULTS_240_FOLLOWUPS.md (c): the ss 3 30k run resumed the 15k
+# checkpoint with twice the capacity and the split window reopened
+SS3_CONTINUATION = ["--max-capacity", "2097152",
+                    "--model.stop-split-at", "25000"]
+# the reference's eval curves, {step: (PSNR, SSIM or None)}, where its docs
+# give them (its JSONs hold the final step only)
+PUBLISHED_CURVES = {
+    # docs/RESULTS_240_FOLLOWUPS.md (b)
+    "eval_240_ss3.json": {7500: (26.161, 0.9371), 15000: (26.339, 0.9413)},
+    # docs/RESULTS_240_30K.md, "Eval curve"
+    "eval_240_30k.json": {7500: (22.809, 0.9083), 15000: (22.785, 0.9117),
+                          22500: (22.894, 0.9136), 30000: (22.873, 0.9132)},
+    # FOLLOWUPS (b) to 15k, then (c): "peak 26.461 @22.5k"
+    "eval_240_ss3_30k.json": {7500: (26.161, 0.9371),
+                              15000: (26.339, 0.9413),
+                              22500: (26.461, None),
+                              30000: (26.331, 0.9414)},
+}
 GROWTH = re.compile(r"^step (\d+): (.*)$")
 CAPTURES = {"ss3": 3, "1spp": 1}  # rays per pixel axis
 CEILING_SS = 3  # analyze_gt_aliasing's supersampling
@@ -99,15 +140,54 @@ def rasterize_mode(flags: List[str]) -> str:
     return mode
 
 
+def stretch_ends(iters: int, stretch: int = STRETCH) -> List[int]:
+    """The step each stretch of a run of ``iters`` steps ends at: every
+    ``stretch`` steps, and ``iters``."""
+    return list(range(stretch, iters, stretch)) + [iters]
+
+
+def step_scale(stretch: int) -> int:
+    """How many of the recipe's steps one step of the run stands for: 1,
+    or in a rehearsal, whose stretches are shorter than the recipe's 7500
+    steps, 7500 / ``stretch`` (a whole number). The run's name, its
+    published curve and the ss 3 continuation all read the recipe's step
+    through this one number."""
+    if stretch >= STRETCH:
+        return 1
+    if STRETCH % stretch:
+        raise ValueError(f"--stretch {stretch}: a rehearsal's stretch "
+                         f"divides the recipe's {STRETCH}")
+    return STRETCH // stretch
+
+
+def continuation_start(capture: str, iters: int,
+                       stretch: int = STRETCH) -> Optional[int]:
+    """The step of the ss 3 15k checkpoint that the run's later stretches
+    resume with :data:`SS3_CONTINUATION` (the recipe's step 15000), or
+    None (a run of at most 15k recipe steps, or the 1-spp capture).
+    Raises unless a stretch ends at that step."""
+    scale = step_scale(stretch)
+    if capture != "ss3" or iters * scale <= RECIPE_ITERS:
+        return None
+    start = RECIPE_ITERS // scale
+    if start not in stretch_ends(iters, stretch):
+        raise ValueError(
+            f"the ss 3 continuation resumes the checkpoint of step {start}, "
+            f"which no stretch of {stretch} steps to {iters} ends at")
+    return start
+
+
 def config_name(capture: str, method: str, mono: bool,
-                flags: List[str]) -> str:
+                flags: List[str], length: int = RECIPE_ITERS) -> str:
     """The reference's name of the run, ``eval_<name>.json``:
-    ``240[_ss3][_aa][_mono][_cogs]``."""
+    ``240[_ss3][_aa][_mono][_cogs][_30k]``, the last for a run longer than
+    the 15k recipe (``length`` at the recipe's scale)."""
     return ("240" + ("_ss3" if capture == "ss3" else "")
             + ("_aa" if rasterize_mode(flags) == "antialiased" else "")
             + ("_mono" if mono else "")
             + ("" if method == "gaussian-splatting"
-               else "_" + method.replace("-", "")))
+               else "_" + method.replace("-", ""))
+            + (f"_{length / 1000:g}k" if length > RECIPE_ITERS else ""))
 
 
 def add_config_args(ap: argparse.ArgumentParser) -> None:
@@ -119,6 +199,9 @@ def add_config_args(ap: argparse.ArgumentParser) -> None:
                     help="gaussian-splatting (co-gs with --mono)")
     ap.add_argument("--published", type=Path, default=None,
                     help="the reference's gs-eval JSON of this configuration")
+    ap.add_argument("--iters", type=int, default=RECIPE_ITERS)
+    ap.add_argument("--stretch", "--first-stretch", type=int, default=STRETCH,
+                    help="steps a stretch (the recipe's 7500)")
 
 
 def resolve_config(ap: argparse.ArgumentParser, args,
@@ -130,22 +213,63 @@ def resolve_config(ap: argparse.ArgumentParser, args,
     if args.mono and method != "co-gs":
         ap.error("--mono trains co-gs")
     extra = (list(MONO_FLAGS) if args.mono else []) + list(extra)
-    return method, extra, config_name(args.capture, method, args.mono, extra)
+    try:
+        continuation_start(args.capture, args.iters, args.stretch)
+        length = args.iters * step_scale(args.stretch)
+    except ValueError as e:
+        ap.error(str(e))
+    return method, extra, config_name(args.capture, method, args.mono, extra,
+                                      length)
+
+
+def runs_name(cfg_name: str, stretch: int) -> str:
+    """The directory the run trains in: ``runs_<cfg>``, and for a
+    rehearsal ``runs_<cfg>_stretch<n>``, so that a full-size run never
+    resumes a rehearsal's checkpoint."""
+    return f"runs_{cfg_name}" + (
+        "" if step_scale(stretch) == 1 else f"_stretch{stretch}")
+
+
+def stretch_flags(args, extra: List[str]) -> List[List[str]]:
+    """gs-train's flags after the recipe's for each stretch: ``extra``, and
+    past the ss 3 15k checkpoint :data:`SS3_CONTINUATION` after them."""
+    start = continuation_start(args.capture, args.iters, args.stretch)
+    return [list(extra) + (SS3_CONTINUATION
+                           if start is not None and end > start else [])
+            for end in stretch_ends(args.iters, args.stretch)]
+
+
+def published_curve(path: Path, step: int) -> Optional[tuple]:
+    """The reference's (PSNR, SSIM or None) at ``step`` of the run whose
+    gs-eval JSON is ``path``, where its docs give it."""
+    return PUBLISHED_CURVES.get(Path(path).name, {}).get(step)
 
 
 def prepare_data(work_dir: Path, capture: str, mono: bool, n_views: int,
                  img_wh, seed_points: int, device=None,
                  reuse: bool = False) -> tuple:
     """Write the capture (and with ``mono`` its mono-depth variant) under
-    ``work_dir``; with ``reuse`` a directory that already holds
-    ``transforms.json`` is kept. Returns the dataset to train on and what
-    was done: seconds of each step that ran, the mono tool's report."""
+    ``work_dir``, and its arguments beside it (``<name>.capture.json``);
+    with ``reuse`` a directory that already holds ``transforms.json`` is
+    kept if it was written with these arguments, and refused otherwise.
+    Returns the dataset to train on and what was done: seconds of each
+    step that ran, the mono tool's report."""
     from gstk_torch.data.raytraced import generate_raytraced_dataset
     from gstk_torch.tools import make_mono_depth
 
     data = Path(work_dir) / data_name(capture, False)
     done: Dict = {"capture": capture}
-    if not (reuse and (data / "transforms.json").exists()):
+    made_with = {"n_views": n_views, "img_wh": list(img_wh),
+                 "seed_points": seed_points, "rays_per_axis": CAPTURES[capture]}
+    record = data.with_name(data.name + ".capture.json")
+    if reuse and (data / "transforms.json").exists():
+        kept = (json.loads(record.read_text()) if record.exists()
+                else "not recorded")
+        if kept != made_with:
+            raise SystemExit(
+                f"{data} holds a capture made with {kept}, not {made_with};"
+                " remove it or choose another --work-dir")
+    else:
         t0 = time.perf_counter()
         if capture == "ss3":
             generate_sharded_dataset(data, n_views, img_wh, seed_points,
@@ -155,6 +279,7 @@ def prepare_data(work_dir: Path, capture: str, mono: bool, n_views: int,
                                        supersample=CAPTURES[capture],
                                        device=device)
         done["capture_s"] = time.perf_counter() - t0
+        record.write_text(json.dumps(made_with))
         print(f"capture {capture}: {n_views} views at {img_wh[0]}x{img_wh[1]}"
               f" in {done['capture_s']:.1f} s", flush=True)
     if not mono:
@@ -245,6 +370,37 @@ def iter_ms_by_lanes(rows: List[Dict], spans: List) -> Dict[int, dict]:
     return out
 
 
+def growth_counts(events: List) -> Dict[str, int]:
+    """How many growth events of each kind the trainer logged: Gaussian
+    capacity, intersection buffer, band split, band merge."""
+    kinds = {"lanes": "Growing Gaussian capacity",
+             "isect": "Growing intersection capacity",
+             "band_split": "splitting into", "band_merge": "merging to"}
+    return {k: sum(v in msg for _, msg in events) for k, v in kinds.items()}
+
+
+def peak_by_lanes(text: str) -> Dict[int, float]:
+    """The device peak (MiB) at each Gaussian capacity over every gs-train
+    of the log (the most where several trained at one capacity)."""
+    out: Dict[int, float] = {}
+    for group in re.findall(r"\(by lanes: ([^)]*)\)", text):
+        for lanes, mib in re.findall(r"(\d+): ([0-9.]+)", group):
+            out[int(lanes)] = max(float(mib), out.get(int(lanes), 0.0))
+    return out
+
+
+def alive_summary(rows: List[Dict]) -> dict:
+    """The alive count of the run's metrics rows: its peak, the first
+    step at the peak, and the count logged nearest each 1000th step."""
+    alive = [(r["step"], int(r["num_alive"])) for r in rows
+             if "num_alive" in r]
+    peak = max(a for _, a in alive)
+    return {"peak": peak,
+            "peak_step": next(s for s, a in alive if a == peak),
+            "every_1000": {k: min(alive, key=lambda x: abs(x[0] - k))[1]
+                           for k in range(0, alive[-1][0] + 1, 1000)}}
+
+
 def rings(per_view: List[float]) -> dict:
     """Mean PSNR of each ring (frame index mod 3) and the lowest view."""
     arr = np.asarray(per_view, np.float64)
@@ -285,8 +441,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--work-dir", type=Path, default=Path("runs/quality"))
     ap.add_argument("--out-dir", type=Path, default=Path("runs/quality/report"))
     add_config_args(ap)
-    ap.add_argument("--iters", type=int, default=15000)
-    ap.add_argument("--first-stretch", type=int, default=7500)
     ap.add_argument("--n-views", type=int, default=240)
     ap.add_argument("--width", type=int, default=800)
     ap.add_argument("--height", type=int, default=800)
@@ -299,11 +453,21 @@ def main(argv=None) -> dict:
     dev = [] if args.device is None else ["--device", args.device]
     out = args.out_dir
     out.mkdir(parents=True, exist_ok=True)
+    # this call's number, kept beside the run's checkpoints: a call cut
+    # short is picked up by the next one
+    runs = args.work_dir / runs_name(cfg_name, args.stretch)
+    runs.mkdir(parents=True, exist_ok=True)
+    calls_json = runs / "calls.json"
+    calls = json.loads(calls_json.read_text()) if calls_json.exists() else []
+    calls.append({"started": time.strftime("%Y-%m-%d %H:%M:%S")})
+    calls_json.write_text(json.dumps(calls, indent=1))
+    call = len(calls)
     log = out / "train.log"
-    log.write_text("")
+    with open(log, "a") as f:
+        f.write(f"=== quality_workflow call {call} ===\n")
     report: Dict = {"config": cfg_name, "method": method,
                     "capture": args.capture, "mono": args.mono,
-                    "extra_flags": extra}
+                    "extra_flags": extra, "calls": calls}
     if args.device in (None, "cuda"):
         report["card"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -313,31 +477,45 @@ def main(argv=None) -> dict:
 
     data, report["data"] = prepare_data(
         args.work_dir, args.capture, args.mono, args.n_views,
-        (args.width, args.height), args.seed_points, args.device)
+        (args.width, args.height), args.seed_points, args.device, reuse=True)
 
-    runs = args.work_dir / f"runs_{cfg_name}"
     run_dir = run_quality.run_dir(data, runs, method)
     cfg = run_dir / "config.yml"
     train = lambda a: _python_m("gstk_torch.scripts.train", a, log)
+    # the stretches earlier calls finished (their gs-eval written)
+    done_json = runs / "stretches.json"
+    done = {s["iters"]: s for s in (json.loads(done_json.read_text())
+                                    if done_json.exists() else [])}
     stretches, evals = [], {}
-    for iters in (args.first_stretch, args.iters):
+    for iters, flags in zip(stretch_ends(args.iters, args.stretch),
+                            stretch_flags(args, extra)):
+        eval_json = out / f"eval_{iters}.json"
+        if (iters in done and eval_json.exists()
+                and run_quality.checkpoint_step(run_dir) >= iters):
+            stretches.append(done[iters])
+            evals[iters] = json.loads(eval_json.read_text())
+            print(f"stretch to step {iters}: done in call "
+                  f"{done[iters]['call']}", flush=True)
+            continue
         t0 = time.perf_counter()
         rc = run_quality.main(
             [str(data), str(runs), method, str(iters), *dev, "--",
-             *extra], train=train)
+             *flags], train=train)
         wall = time.perf_counter() - t0
         if rc:
             raise SystemExit(f"gs-train failed (rc {rc}); see {log}")
-        stretches.append({"iters": iters, "wall_s": wall})
         print(f"stretch to step {iters}: {wall:.1f} s", flush=True)
-        eval_json = out / f"eval_{iters}.json"
         t0 = time.perf_counter()
         if _python_m("gstk_torch.scripts.eval", [
                 "--load-config", str(cfg), "--output-path", str(eval_json),
                 "--skip-lpips", *dev]):
             raise SystemExit("gs-eval failed")
         evals[iters] = json.loads(eval_json.read_text())
-        evals[iters]["wall_s"] = time.perf_counter() - t0
+        stretches.append({"iters": iters, "wall_s": wall, "call": call,
+                          "flags": flags,
+                          "gs_eval_s": time.perf_counter() - t0})
+        done[iters] = stretches[-1]
+        done_json.write_text(json.dumps(list(done.values()), indent=1))
     report["stretches"] = stretches
     final = stretches[-1]["iters"]
     shutil.copy(run_dir / "metrics.jsonl", out / "metrics.jsonl")
@@ -347,17 +525,27 @@ def main(argv=None) -> dict:
     # gs-eval against the trainer's own final eval (gs-train's eval_all
     # after the last step), and the per-ring table
     report["evals"] = {}
-    for iters, ev in evals.items():
+    for st in stretches:
+        iters = st["iters"]
         trained = [r for r in rows if "eval_psnr" in r and r["step"] == iters]
-        res = ev["results"]
+        res = evals[iters]["results"]
         entry = {"psnr": res["psnr"], "ssim": res["ssim"],
-                 "gs_eval_s": ev["wall_s"],
-                 **rings(ev["per_image"]["psnr"])}
+                 "gs_eval_s": st["gs_eval_s"], "call": st["call"],
+                 **rings(evals[iters]["per_image"]["psnr"])}
         if trained:
             entry["trainer_psnr"] = trained[-1]["eval_psnr"]
             entry["trainer_ssim"] = trained[-1]["eval_ssim"]
             entry["bit_for_bit"] = (res["psnr"] == trained[-1]["eval_psnr"]
                                     and res["ssim"] == trained[-1]["eval_ssim"])
+        ref = (published_curve(args.published,
+                               iters * step_scale(args.stretch))
+               if args.published is not None else None)
+        if ref is not None:
+            entry["published_psnr"], entry["published_ssim"] = ref
+            entry["d_published_psnr"] = res["psnr"] - ref[0]
+            print(f"step {iters}: PSNR {res['psnr']:.3f}, the reference "
+                  f"{ref[0]:.3f} ({entry['d_published_psnr']:+.3f})",
+                  flush=True)
         report["evals"][iters] = entry
     result_json = out / f"eval_{cfg_name}_torch.json"
     shutil.copy(out / f"eval_{final}.json", result_json)
@@ -370,8 +558,10 @@ def main(argv=None) -> dict:
     events = [(int(m.group(1)), m.group(2)) for m in
               (GROWTH.match(l) for l in text.splitlines()) if m]
     report["growth_events"] = events
+    report["growth_counts"] = growth_counts(events)
     report["device_peak_mib"] = [float(x) for x in re.findall(
         r"Device peak ([0-9.]+) MiB", text)]
+    report["device_peak_by_lanes"] = peak_by_lanes(text)
     report["train_done"] = re.findall(r"Training done in ([0-9.]+) min", text)
     n_seed = rows[0]["num_alive"]
     start_lanes = run_quality.start_capacity(int(n_seed))
@@ -379,6 +569,7 @@ def main(argv=None) -> dict:
         rows, lane_spans(events, start_lanes))
     alive = [r for r in rows if "num_alive" in r]
     report["alive_end"] = alive[-1]["num_alive"]
+    report["alive"] = alive_summary(rows)
     report["num_intersects_max"] = max(r.get("num_intersects", 0) for r in rows)
 
     # one counted stretch of 2 steps from the final checkpoint
@@ -388,7 +579,7 @@ def main(argv=None) -> dict:
         [*dev, *run_quality.recipe_flags(data, probe, method, final + 2),
          "--load-dir", str(run_dir / "ckpts"), "--steps-per-save", "0",
          "--steps-per-eval-image", "0", "--steps-per-eval-all-images", "0",
-         *extra], 2)
+         *stretches[-1]["flags"]], 2)
 
     # the ceiling analysis on the eval views, against the final gs-eval
     gts = args.work_dir / "gtS_eval.npz"

@@ -69,6 +69,14 @@ def run_dir(data: Path, out: Path, method: str) -> Path:
     return Path(out) / Path(data).name / method
 
 
+def checkpoint_step(run: Path) -> int:
+    """The step of the newest checkpoint under ``run``/ckpts; 0 without
+    one."""
+    ckpts = Path(run) / "ckpts"
+    newest = latest_checkpoint(ckpts) if ckpts.is_dir() else None
+    return 0 if newest is None else int(newest.name.split("-")[1].split(".")[0])
+
+
 def train_argv(data: Path, out: Path, method: str, iters: int,
                extra: List[str] = (), device: Optional[str] = None
                ) -> List[str]:

@@ -29,12 +29,20 @@ Usage:
   python -m gstk_torch.tools.tpu_precision_probe --rounded fullmat \\
       --capture 1spp --method co-gs --published eval_240_cogs.json \\
       --out-dir runs/probe [--iters 15000] [--device cpu] [-- flags]
+
+``--iters 30000`` names a run ``_30k`` as the workflow does; on the ss 3
+capture it trains the 15k recipe to 15k and resumes it with
+:data:`~gstk_torch.tools.quality_workflow.SS3_CONTINUATION`. A call cut
+short is picked up by the same command: the run resumes from its newest
+checkpoint. With ``--published`` the report also sets the trainer's evals
+beside the reference's eval curve where its docs give one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import time
 from pathlib import Path
 from typing import List
@@ -135,7 +143,6 @@ def main(argv=None) -> dict:
     qw.add_config_args(ap)
     ap.add_argument("--work-dir", type=Path, default=Path("runs/probe"))
     ap.add_argument("--out-dir", type=Path, default=Path("runs/probe/report"))
-    ap.add_argument("--iters", type=int, default=15000)
     ap.add_argument("--n-views", type=int, default=240)
     ap.add_argument("--size", type=int, default=800)
     ap.add_argument("--seed-points", type=int, default=160_000)
@@ -161,21 +168,34 @@ def main(argv=None) -> dict:
     print(f"rounded {products} vs exact: {report['screen_shift']}", flush=True)
 
     name = "_".join(parts) or "exact"
-    runs = args.work_dir / f"runs_{cfg_name}_{name}"
-    trainers = []
+    runs = args.work_dir / f"{qw.runs_name(cfg_name, args.stretch)}_{name}"
+    run_dir = run_quality.run_dir(data, runs, method)
+    # one run_quality call to --iters, or for the ss 3 30k run the 15k
+    # recipe and then its continuation (quality_workflow.SS3_CONTINUATION)
+    ends = qw.stretch_ends(args.iters, args.stretch)
+    start = qw.continuation_start(args.capture, args.iters, args.stretch)
+    segments = ([(args.iters, extra)] if start is None else
+                [(start, extra), (args.iters, extra + qw.SS3_CONTINUATION)])
+    events, peaks = [], {}
 
     def train(argv):
-        trainers.append(train_main(argv))
-        return 0 if trainers[-1] else 1
+        trainer = train_main(argv)
+        events.extend(trainer.growth_events)
+        for lanes, mib in trainer.peak_by_lanes.items():
+            peaks[lanes] = max(mib, peaks.get(lanes, 0.0))
+        return 0 if trainer else 1
 
     set_rounding(parts)
     try:
-        rc = run_quality.main(
-            [str(data), str(runs), method, str(args.iters), *dev, "--",
-             *extra], train=train)
-        if rc:
-            raise SystemExit(f"gs-train failed (rc {rc})")
-        cfg = run_quality.run_dir(data, runs, method) / "config.yml"
+        for end, seg_flags in segments:
+            if run_quality.checkpoint_step(run_dir) >= end:
+                continue  # trained by an earlier call
+            rc = run_quality.main(
+                [str(data), str(runs), method, str(end), *dev, "--",
+                 *seg_flags], train=train)
+            if rc:
+                raise SystemExit(f"gs-train failed (rc {rc})")
+        cfg = run_dir / "config.yml"
         args.out_dir.mkdir(parents=True, exist_ok=True)
         for label, on in (("rounded", parts), ("exact", [])):
             set_rounding(on)
@@ -194,9 +214,22 @@ def main(argv=None) -> dict:
     rows = [json.loads(l) for l in (cfg.parent / "metrics.jsonl").open()]
     report["trainer_evals"] = [(r["step"], r["eval_psnr"], r["eval_ssim"])
                                for r in rows if "eval_psnr" in r]
+    if args.published is not None:
+        # the in-loop evals log the step before a stretch's end
+        report["published_curve"] = {
+            end: [psnr, ref[0], psnr - ref[0]]
+            for step, psnr, _ in report["trainer_evals"]
+            for end in [step if step in ends else step + 1] if end in ends
+            for ref in [qw.published_curve(
+                args.published, end * qw.step_scale(args.stretch))]
+            if ref is not None}
     report["alive_end"] = [r["num_alive"] for r in rows if "num_alive" in r][-1]
-    events = [e for t in trainers for e in t.growth_events]
+    report["alive"] = qw.alive_summary(rows)
+    shutil.copy(cfg.parent / "metrics.jsonl",
+                args.out_dir / f"metrics_{cfg_name}_{name}.jsonl")
     report["growth_events"] = events
+    report["growth_counts"] = qw.growth_counts(events)
+    report["device_peak_by_lanes"] = peaks
     report["iter_ms_by_lanes"] = qw.iter_ms_by_lanes(rows, qw.lane_spans(
         events, run_quality.start_capacity(int(rows[0]["num_alive"]))))
     report["wall_s"] = time.perf_counter() - t0

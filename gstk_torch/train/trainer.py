@@ -199,7 +199,8 @@ def score_views(render: Callable[[CachedFrame], torch.Tensor], frames,
     with ``return_preds``, the (n, H, W, 3) predictions in one more
     transfer (equal shapes only). Returns numpy ``(psnrs, ssims, lpips or
     None, preds or None)``. The trainer's evals and gs-eval both score
-    through this function."""
+    through this function; its means (:func:`loss_utils.ordered_mean`) do
+    not depend on the CPU's thread count."""
     device = background.device
     psnrs, ssims, lps, preds = [], [], [], []
     for frame in frames:
@@ -207,9 +208,9 @@ def score_views(render: Callable[[CachedFrame], torch.Tensor], frames,
         gt = composite_gt_with_background(
             _dequantize_image(_quantize_cache_images(frame.image, device)),
             background)
-        mse = torch.mean((pred - gt) ** 2)
+        mse = loss_utils.ordered_mean((pred - gt) ** 2)
         psnrs.append(-10.0 * torch.log10(torch.clamp(mse, min=1e-10)))
-        ssims.append(loss_utils.ssim(gt, pred))
+        ssims.append(loss_utils.ssim(gt, pred, mean=loss_utils.ordered_mean))
         if lpips_params is not None:
             lps.append(lpips(lpips_params, gt, pred))
         if return_preds:
@@ -291,6 +292,8 @@ class Trainer:
         self._isect_window: list = []
         # (step, message) of each capacity growth, band split and merge
         self.growth_events: list = []
+        # device peak MiB up to the end of each Gaussian capacity (on the card)
+        self.peak_by_lanes: Dict[int, float] = {}
         self._step_cache: Dict = {}
         self._dev_cache: Dict = {}
         # one process, one rank, until setup joins a process group
@@ -614,6 +617,7 @@ class Trainer:
                     self._cap_warned = True
             else:
                 self._grown(step, f"Growing Gaussian capacity {cap} -> {new_cap}")
+                self._note_peak(cap)
                 with timer("grow_capacity"):
                     self._grow_capacity(new_cap)
         n_isect = int(metrics.get("num_intersects", 0))
@@ -654,6 +658,16 @@ class Trainer:
             self.raster_cfg = dataclasses.replace(
                 self.raster_cfg, bands=new_bands
             )
+
+    def _note_peak(self, lanes: int) -> None:
+        """Keep the device peak so far as the peak at ``lanes``, the
+        capacity that trained until now. The counter is the process's and
+        is never reset here; capacity only grows, so the value at each
+        capacity is the peak of training up to the end of it."""
+        if self.device.type != "cuda":
+            return
+        peak = torch.cuda.max_memory_allocated(self.device) / 2**20
+        self.peak_by_lanes[lanes] = max(peak, self.peak_by_lanes.get(lanes, 0))
 
     # -- main loop ---------------------------------------------------------
     def train(self) -> None:
@@ -720,11 +734,13 @@ class Trainer:
         total = time.time() - t_start
         peak = ""
         if self.device.type == "cuda":
-            peak = (f" Device peak "
-                    f"{torch.cuda.max_memory_allocated(self.device) / 2**20:.1f}"
-                    f" MiB.")
-        print(f"Training done in {total / 60:.1f} min.{peak} "
-              f"{PROFILER.report()}")
+            self._note_peak(self._capacity())
+            peak = (f" Device peak {max(self.peak_by_lanes.values()):.1f} MiB"
+                    " (by lanes: " + ", ".join(
+                        f"{k}: {v:.1f}" for k, v in
+                        sorted(self.peak_by_lanes.items())) + ").")
+        print(f"Training done in {total / 60:.1f} min.{peak} Growth events: "
+              f"{len(self.growth_events)}. {PROFILER.report()}")
 
     def _save_checkpoint(self) -> None:
         """Rank 0 writes the whole state (under Gaussian sharding every rank

@@ -74,6 +74,17 @@ def _filter2d_separable(img: torch.Tensor, win: np.ndarray) -> torch.Tensor:
     return x[0].permute(1, 2, 0)
 
 
+def ordered_mean(x: torch.Tensor) -> torch.Tensor:
+    """The f32 mean of every entry of ``x``, summed in f64 in index order.
+
+    A CPU ``mean`` splits its input over the intra-op threads, so its
+    last bits change with the thread count; a 1-D ``cumsum`` runs in
+    order on any number of threads. The eval scores use this, so gs-eval
+    repeats the trainer's eval whatever the thread pool."""
+    flat = x.reshape(-1).to(torch.float64)
+    return (torch.cumsum(flat, 0)[-1] / flat.numel()).to(torch.float32)
+
+
 def ssim(
     pred: torch.Tensor,
     gt: torch.Tensor,
@@ -82,8 +93,11 @@ def ssim(
     sigma: float = 1.5,
     k1: float = 0.01,
     k2: float = 0.03,
+    mean=torch.mean,
 ) -> torch.Tensor:
-    """Mean SSIM over an (H, W, C) image pair (pytorch_msssim semantics)."""
+    """Mean SSIM over an (H, W, C) image pair (pytorch_msssim semantics);
+    ``mean`` reduces the SSIM map (:func:`ordered_mean` for the eval
+    scores)."""
     win = _gaussian_window(win_size, sigma)
     c1 = (k1 * data_range) ** 2
     c2 = (k2 * data_range) ** 2
@@ -99,7 +113,7 @@ def ssim(
     sigma_xy = f[..., 4 * c:5 * c] - mu_xy
     cs = (2 * sigma_xy + c2) / (sigma_xx + sigma_yy + c2)
     ssim_map = ((2 * mu_xy + c1) / (mu_xx + mu_yy + c1)) * cs
-    return ssim_map.mean()
+    return mean(ssim_map)
 
 
 def total_variation(x: torch.Tensor) -> torch.Tensor:
