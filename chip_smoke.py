@@ -1,7 +1,8 @@
 """Drive gstk_torch's render, train, eval and export paths, its three
 methods, the raytraced data, mono co-gs, the live viewer, data processing,
-the parallel paths, the quality workflow and the reference's published
-quality configurations on one CUDA card and check them.
+the parallel paths, the quality workflow, the reference's published
+quality configurations and its benchmark, profiling and preflight tools on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -260,6 +261,24 @@ line:
      capture with its continuation) at a small size through
      ``quality_workflow`` (80 steps in four stretches standing for the
      recipe's 7500) and the probe, K1-K4 once a step;
+  21. the last tools: (a) ``profile_step`` at bench.py's point: K1-K4 in
+     its table, every launch made recorded, device busy within the traced
+     window, ``--parse-only`` equal; (b) ``bench_kernels`` at its point,
+     K1 and K2 against their plain twins at phases 5 and 9's tolerances;
+     (c) ``bench_render``'s frame against the plain twins; (d)
+     ``bench_refine``'s inputs at 2^16 lanes refined on the card equal to
+     the CPU's; (e) ``bench_sort``, ``bench_scatter`` and ``bench_gather``
+     at a reduced size and ``bench_gather port`` at bench.py's point, each
+     case equal to numpy, and ``bench_render_4k``'s ``main`` at 1920x1080
+     (K1 and K3 once a band, the Renderer's bands equal); (f) the round-2
+     64-view run (``tools/run_15k.sh``) at 160x160, two stretches of 300
+     steps standing for 7500 each, the downstream stage (gs-export
+     gaussian-splat, gs-render pose, the tetra TSDF mesh, not empty) and
+     a 20-step co-gs smoke, gs-eval equal to the trainer's eval, K1-K4
+     once a step;
+     (g) ``quality_workflow`` on CUDA refused (exit 3) without a preflight
+     stamp; then, every phase passed, the preflight stamp is written and
+     ``preflight check`` exits 0;
 then one ``kernels`` JSON line (K1-K4: launches per train step, times,
 bounds, phase 14's launches under ``launches_methods``, phase 15's
 under ``launches_data_viewer``, phase 16's under
@@ -267,14 +286,15 @@ under ``launches_data_viewer``, phase 16's under
 rank and path, phase 18's under ``launches_quality`` and phase 19's, a
 step of each configuration and each probe run, under
 ``launches_configs``, phase 20's 4K frame under ``launches_4k`` and its
-continuation and 30k runs under ``launches_30k``; P1-P3:
+continuation and 30k runs under ``launches_30k``, phase 21's under
+``launches_tools``; P1-P3:
 launches in phase 12's run of the probes; phase 11's numbers under
 ``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
 view and a frame included, under ``backend``, phase 14's under
 ``methods``, phase 15's under ``data_viewer``, phase 16's under
 ``process_data``, phase 17's under ``parallel``, phase 18's under
 ``quality``, phase 19's under ``configs``, phase 20's under
-``largest``), the card's name and
+``largest``, phase 21's under ``tools``), the card's name and
 power limit, and the last line ``{"ok":
 true, "device": {...}}``.
 Kernel times are torch.profiler's device time; a kernel it records no
@@ -288,6 +308,7 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import re
 import shutil
 import socket
@@ -382,13 +403,30 @@ from gstk_torch.scripts import render as render_cli
 from gstk_torch.scripts.process_data import main as process_data_main
 from gstk_torch.scripts.train import main as train_main
 from gstk_torch.tools import (
+    F32_FLOP_PER_S,
+    HBM_BYTES_PER_S,
+    K1_FLOP_PER_PAIR,
     ablate_fwd,
     bench_dynrow,
+    bench_gather,
+    bench_kernels,
+    bench_point,
+    bench_refine,
+    bench_render,
     bench_render_4k,
+    bench_scatter,
+    bench_sort,
     convert_lpips_weights,
+    event_ms,
+    event_samples,
     gen_raytraced_sharded,
+    k1_work,
+    k2_work,
     kernel_device_ms,
+    launches_during,
     make_mono_depth,
+    preflight,
+    profile_step,
     quality_workflow,
     run_quality,
     tpu_precision_probe,
@@ -438,16 +476,6 @@ DEVICE = "cuda"
 PARITY = dict(rtol=1e-3, atol=1e-4)  # gstk_tpu's image parity tolerances
 RTOL_GRAD = 5e-3  # gstk_tpu's gradient parity tolerance
 MAX_OUTSIDE = 0.005  # share of a group allowed outside it (cutoff flips)
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-K1_FLOP_PER_PAIR = 21  # ~20 FLOP + 1 exp per (pixel, entry) pair evaluated
-# K2 (csrc/composite_bwd.cu): the recompute per pair evaluated, and the
-# gradient per pair kept, at ch channels. The sum over pixels counts the
-# 6 + ch adds a pair needs, not the butterfly's 16 padded adds and selects
-# a lane, nor any shuffle: those are the kernel's cost, not the function's.
-K2_FLOP_PER_PAIR = 15
-K2_FLOP_PER_KEPT = lambda ch: 37 + 4 * ch
 # phase 11: the synthetic object's points, few enough that no 800x800 view
 # of the generator's render exceeds its ISECT_CAPACITY (2^17) intersections
 # (it raises if one does; the count grows with the points)
@@ -523,8 +551,16 @@ CONFIGS_30K = {  # capture, quality_workflow / probe flags, gs-train flags
     "240_ss3_30k": ("ss3", [], []),
 }
 C30_ITERS, C30_STRETCH = 80, 20
+# phase 21: profile_step's traced steps; the refine's lanes; the sort, scatter
+# and gather sizes; the 64-view workflow at 18(a)'s side, two stretches of
+# 20 steps standing for the recipe's 7500 each, and a 20-step co-gs smoke
+PROFILE_STEPS, TOOL_REFINE_CAP = 3, 1 << 16
+TOOL_SORT_LOGN, TOOL_ROWS = (16, 18), 1 << 16
+TOOL_4K_GAUSSIANS = 30_000
+R15_VIEWS, R15_ITERS, R15_STRETCH, R15_COGS_ITERS = 64, 600, 300, 20
 VGG_LAYERS = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
 REPO = Path(__file__).resolve().parent
+R15_PUBLISHED = REPO / "gstk_torch" / "tools" / "published" / "results_15k.json"
 
 
 def phase(name):
@@ -586,25 +622,14 @@ def assert_close(name, got, want, rtol, atol, max_outside=0.0):
     return bad
 
 
-def event_ms(fn, iters: int) -> float:
-    """Mean ms per call from CUDA events around ``iters`` calls."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--rank"]:  # one rank of phase 17(b)
         return rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    if sys.argv[1:2] == ["--tools"]:  # phase 21's timed tools
+        return tools_main(Path(sys.argv[2]), sys.argv[3])
     with tempfile.TemporaryDirectory(prefix="gstk_torch_smoke_") as ckpt_dir:
         return run(ckpt_dir)
 
@@ -612,6 +637,9 @@ def main() -> int:
 def run(ckpt_dir: str) -> int:
     """The phases; the checkpoint goes to ``ckpt_dir``."""
     dev = torch.device(DEVICE)
+    # this script is the card parity run that writes the preflight stamp,
+    # once every phase has passed; its own quality runs go ahead before it
+    os.environ[preflight.SKIP_ENV] = "1"
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
@@ -779,9 +807,7 @@ def run(ckpt_dir: str) -> int:
     }
     ch = inputs["colors"].shape[1]
     num_tiles = tiles[0] * tiles[1]
-    k1_bytes = (n_isect * (4 + 4 * (6 + ch)) + num_tiles * 8
-                + num_tiles * 256 * (ch + 1) * 4)
-    k1_ops = pairs * K1_FLOP_PER_PAIR
+    k1_bytes, k1_ops = k1_work(n_isect, num_tiles, ch, pairs)
     # the record K1 and K2 read, built once per band outside both kernels
     pack = {"render": kernel_device_ms(lambda: pack_records(*k1_args[:4]),
                                        None, iters)}
@@ -975,9 +1001,8 @@ def run(ckpt_dir: str) -> int:
     print(f"refine at capacity {CAPACITY} ({N_POINTS} alive), step "
           f"{REFINE_STEP}: {[round(x, 3) for x in bench_refine_ms]} ms "
           f"(synchronized); info {bench_info}")
-    k2_bytes = (TRAIN_ISECT * (6 + ch) * 4 + t_n_isect * (4 + 4 * (6 + ch))
-                + num_tiles * 256 * (2 * ch + 2) * 4 + num_tiles * 8)
-    k2_ops = t_pairs * K2_FLOP_PER_PAIR + t_kept_pairs * K2_FLOP_PER_KEPT(ch)
+    k2_bytes, k2_ops = k2_work(TRAIN_ISECT, t_n_isect, num_tiles,
+                                             ch, t_pairs, t_kept_pairs)
     k4_bytes = rows * covered * 4 + n_seg * 4 + rows * n_seg * 4
     k4_ops = rows * covered
 
@@ -994,6 +1019,14 @@ def run(ckpt_dir: str) -> int:
     quality_numbers = quality_phase(Path(ckpt_dir), counters)
     configs_numbers = configs_phase(Path(ckpt_dir), counters)
     largest_numbers = largest_phase(Path(ckpt_dir), counters)
+    tools_numbers = tools_phase(Path(ckpt_dir), counters)
+    # every phase has passed: the kernel files carry a card parity pass
+    stamp = preflight.write_stamp("chip_smoke")
+    os.environ.pop(preflight.SKIP_ENV)
+    assert preflight.main(["check"]) == 0, "the stamp just written is stale"
+    tools_numbers["preflight_stamp"] = stamp
+    print(f"preflight: stamped {stamp['hash'][:16]}... via chip_smoke; "
+          f"check exits 0")
 
     kernels = []
     for name, t, nbytes, ops, src, replaces, err in (
@@ -1045,6 +1078,8 @@ def run(ckpt_dir: str) -> int:
         entry["launches_30k"] = {
             run: n[name] for run, n in largest_numbers["launches"].items()
             if run != "4k_frame"}
+        entry["launches_tools"] = {
+            run: n[name] for run, n in tools_numbers["launches"].items()}
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
@@ -1068,6 +1103,7 @@ def run(ckpt_dir: str) -> int:
                       "quality": quality_numbers,
                       "configs": configs_numbers,
                       "largest": largest_numbers,
+                      "tools": tools_numbers,
                       "power": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3943,8 +3979,8 @@ def frame_4k_check(counters) -> dict:
                                ("alpha", alpha, alpha_p))]
     cpu = bench_render_4k.band_intersections(
         bench_render_4k.project(cam, arrays, "cpu"), arrays, cam)
-    ms = bench_render_4k.device_ms(
-        lambda: bench_render_4k.frame(proj, arrays, cam), R4K_ITERS)
+    ms = event_samples(lambda: bench_render_4k.frame(proj, arrays, cam),
+                       R4K_ITERS)
     total = int(proj.num_tiles_hit.long().sum())
     print(f"4K frame: {len(bands)} bands of {bands} intersections (CPU "
           f"{cpu}; plain {[int(x) for x in info_p['band_intersects'].cpu()]})"
@@ -4026,6 +4062,309 @@ def continuation_check(work_dir: Path, counters) -> dict:
     return {"alive": [alive_first, alive], "events": second.growth_events,
             "capacity": second.state.scene.capacity,
             "psnr": res["psnr"], "launches": launches}
+
+
+def tools_phase(work_dir: Path, counters) -> dict:
+    """Phase 21: the reference's last tools through the port's entry
+    points, each at a reduced size and checked, the round-2 64-view run
+    rehearsed with its downstream stage and co-gs smoke, and the preflight
+    gate's refusal; the counters reset just before each in-process run and
+    read just after. The timed tools run in one fresh process
+    (:func:`tools_main`): late in this long process torch.profiler loses
+    device events (4266 of 4314 in one trace, then none in three
+    sessions), which a fresh process does not."""
+    phase("21 the last tools: profile_step, bench_kernels, bench_render, "
+          "bench_refine, the sort / scatter / gather benchmarks, the 64-view "
+          "run with its toolchain and co-gs smoke, the preflight gate")
+    t0 = time.perf_counter()
+    timed = tools_run(work_dir / "tools")
+    out = {"profile_step": profile_check(work_dir / "tools" / "traces")}
+    launches = {"profile_step_per_step": out["profile_step"].pop("launches")}
+    out["bench_kernels"] = bench_kernels_check(timed["bench_kernels"])
+    launches["bench_kernels"] = out["bench_kernels"].pop("launches")
+    out["bench_render"] = bench_render_check(timed["bench_render"])
+    launches["bench_render_frame"] = out["bench_render"].pop("launches")
+    out["bench_refine"] = bench_refine_check(timed["bench_refine"])
+    out["microbenchmarks"] = microbench_check(timed)
+    out["render_4k_main"] = render_4k_main_check(timed["render_4k"])
+    out["run_15k"] = run_15k_check(work_dir / "run_15k", counters)
+    launches.update(out["run_15k"].pop("launches"))
+    out["preflight_refusal"] = refusal_check(work_dir / "preflight")
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+    loaded = [m for m in ("PIL", "cv2", "yaml") if m in sys.modules]
+    assert not loaded, f"phase 21 imported {loaded}"
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = launches
+    print(f"phase 21 wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def tools_main(work_dir: Path, device: str) -> int:
+    """``chip_smoke.py --tools <dir> <device>``: phase 21's timed tools,
+    each through its entry point's ``main`` at a reduced size, in this
+    fresh process; their results go to ``<dir>/results.json`` and
+    profile_step's trace to ``<dir>/traces``."""
+    dev = ["--device", device]
+    it, rows = ["--iters", "3"], str(TOOL_ROWS)
+    profile_step.main(["--steps", str(PROFILE_STEPS), "--top", "12",
+                       "--trace-dir", str(work_dir / "traces"), *dev])
+    res = {
+        "bench_kernels": bench_kernels.main([*it, *dev]),
+        "bench_render": bench_render.main(["--iters", "5", *dev]),
+        "bench_refine": bench_refine.main(["--caps", str(TOOL_REFINE_CAP),
+                                           *it, *dev]),
+        "sort": bench_sort.main(["--logn", *map(str, TOOL_SORT_LOGN), *it,
+                                 *dev]),
+        "scatter": bench_scatter.main(["--n", rows, "--cap", rows, *it, *dev]),
+        "gather_geometry": bench_gather.main(["geometry", "--n-out", rows,
+                                              *it, *dev]),
+        "gather_locality": bench_gather.main(["locality", "--n-out", rows,
+                                              *it, *dev]),
+        "gather_port": bench_gather.main(["port", "--n-out", rows, *it, *dev]),
+        "render_4k": bench_render_4k.main([
+            "--gaussians", str(TOOL_4K_GAUSSIANS), "--width", "1920",
+            "--height", "1080", "--iters", "3", "--warmup", "1", *dev]),
+    }
+    (work_dir / "results.json").write_text(json.dumps(res))
+    return 0
+
+
+def tools_run(work_dir: Path) -> dict:
+    """:func:`tools_main` in a fresh process; its output's tail printed,
+    its results returned."""
+    work_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--tools", str(work_dir),
+         DEVICE], cwd=REPO, capture_output=True, text=True, timeout=900,
+        env=dict(run_quality.child_env()))
+    lines = [l for l in proc.stdout.splitlines() if not l.startswith("{")]
+    print("\n".join(l[:300] for l in lines[-60:]))
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-3000:])
+    print(f"the timed tools in one process: {time.perf_counter() - t0:.1f} s")
+    return json.loads((work_dir / "results.json").read_text())
+
+
+def profile_check(traces: Path) -> dict:
+    """21(a): ``profile_step`` at bench.py's point (``PROFILE_STEPS``
+    traced steps): the table holds K1-K4, each launch made is recorded,
+    the device's busy time is within the traced window, and
+    ``--parse-only`` (here) reads the report back."""
+    rep = profile_step.main(["--parse-only", "--top", "100000",
+                             "--trace-dir", str(traces)])
+    names = [row[2] for row in rep["table"]["rows"]]
+    for name, k in rep["kernels"].items():
+        sym = profile_step.KERNEL_NAMES[name]
+        assert any(sym in n for n in names), f"{name} not in the table"
+        assert k["made"] == k["recorded"] == PROFILE_STEPS, (name, k)
+    assert 0 < rep["device_busy_ms"] <= rep["window_ms"], rep
+    assert 0 <= rep["step_idle_share"] < 1, rep["step_idle_share"]
+    assert rep["device_events_matched"] <= rep["device_events"]
+    return {"step_ms": rep["step_ms"], "busy_ms_per_step":
+            rep["device_busy_ms"] / PROFILE_STEPS,
+            "idle_share": rep.get("idle_share"),
+            "step_idle_share": rep.get("step_idle_share"),
+            "device_events_per_step": rep["device_events"] / PROFILE_STEPS,
+            "launch_calls": rep["launch_calls"],
+            "num_intersects": rep["num_intersects"],
+            "launches": {k: v["made"] // PROFILE_STEPS
+                         for k, v in rep["kernels"].items()}}
+
+
+def bench_kernels_check(rep: dict) -> dict:
+    """21(b): ``bench_kernels``' inputs at its full point through K1 and K2
+    against their plain twins at phases 5 and 9's tolerances (here, the
+    counters read), and the tool's own run (``rep``), timed."""
+    inputs = bench_kernels.kernel_inputs(
+        bench_point.kernels_scene(), bench_point.K_RES, bench_point.K_ISECT,
+        DEVICE)
+    got = {}
+    launches = launches_during(
+        lambda: got.update(bench_kernels.run_kernels(inputs)))
+    for r in (got, rep):
+        assert r["k1_outside"] == 0, r["k1_outside"]
+        assert r["k2_outside"] <= bench_kernels.K2_MAX_OUTSIDE * r["k2_values"]
+    assert launches["composite_tiles_fwd"] == launches["composite_tiles_bwd"] == 1
+    print(f"bench_kernels' inputs here: K1 max abs err {got['k1_max_abs_err']:.3g}"
+          f", K2 {got['k2_max_abs_err']:.3g} ({got['k2_outside']} outside), "
+          f"launches {launches}")
+    return {k: rep[k] for k in ("num_intersects", "pairs", "kept_pairs",
+                                "k1_max_abs_err", "k2_max_abs_err",
+                                "k2_outside")} | {
+        "k1_ms": rep.get("composite_tiles_fwd", {}).get("ms"),
+        "k2_ms": rep.get("composite_tiles_bwd", {}).get("ms"),
+        "launches": launches}
+
+
+def bench_render_check(rep: dict) -> dict:
+    """21(c): ``bench_render``'s forward-only frame at bench.py's point
+    against the same frame through the plain twins (here), and the tool's
+    own run (``rep``), timed."""
+    point = bench_point.bench_point(device=DEVICE)
+    out = {}
+    launches = launches_during(
+        lambda: out.update(bench_render.render_fn(point)()))
+    torch.cuda.synchronize()
+    plain = bench_render.render_fn(point, dataclasses.replace(
+        point.raster, forward_only=True, backend="plain"))()
+    outside = {k: assert_close(f"bench_render {k} vs the plain twins",
+                               out[k], plain[k], **PARITY, max_outside=0.001)
+               for k in ("rgb", "depth", "alpha")}
+    assert launches["composite_tiles_fwd"] == launches["segment_broadcast"] == 1
+    assert rep["launches_per_frame"] == launches, rep
+    print(f"bench_render's frame vs the plain twins: outside {outside}")
+    return {"outside": outside,
+            "frame_ms": rep.get("frame", {}).get("median_ms"),
+            "host_numpy_ms": rep.get("host_numpy", {}).get("median_ms"),
+            "launches": launches}
+
+
+def bench_refine_check(rep: dict) -> dict:
+    """21(d): ``bench_refine``'s inputs at ``TOOL_REFINE_CAP`` lanes refined
+    on the card and on the CPU: equal alive masks and ``info``, parameters
+    within rtol 1e-6 (means within 1e-6 of the largest ``|mean|``), as
+    phase 11 holds refine; and the tool's own run (``rep``), timed."""
+    got = bench_refine.run_refine(bench_refine.refine_inputs(TOOL_REFINE_CAP,
+                                                             DEVICE))
+    want = bench_refine.run_refine(bench_refine.refine_inputs(TOOL_REFINE_CAP,
+                                                              "cpu"))
+    info = lambda r: {k: int(v) for k, v in r[3].items()}
+    assert info(got) == info(want), (info(got), info(want))
+    assert torch.equal(got[0].alive.cpu(), want[0].alive)
+    means_atol = 1e-6 * float(want[0].means.abs().max())
+    for name, p in want[0].params().items():
+        q = got[0].params()[name].detach().cpu()
+        atol = means_atol if name == "means" else 1e-7
+        assert torch.allclose(q, p.detach(), rtol=1e-6, atol=atol), name
+    print(f"bench_refine at {TOOL_REFINE_CAP} lanes: card = CPU, info "
+          f"{info(want)}")
+    assert rep["caps"][str(TOOL_REFINE_CAP)]["info"] == info(want)
+    return {"info": info(want), **rep["caps"][str(TOOL_REFINE_CAP)]}
+
+
+def microbench_check(reps: dict) -> dict:
+    """21(e): ``bench_sort``, ``bench_scatter`` and ``bench_gather`` at a
+    reduced size, ``bench_gather port`` at bench.py's point (their runs in
+    ``reps``); each case equals numpy (the tools assert it)."""
+    cases = {"sort": sum(len(v) for v in reps["sort"]["cases"].values()),
+             "scatter": len(reps["scatter"]["cases"]),
+             "gather_geometry": len(reps["gather_geometry"]["cases"]),
+             "gather_locality": 2 * len(reps["gather_locality"]["cases"]),
+             "gather_port": len(reps["gather_port"]["cases"])}
+    # locality: uniform and the windows up to the table's rows, rows and
+    # columns each
+    assert cases == {"sort": 7 * len(TOOL_SORT_LOGN), "scatter": 16,
+                     "gather_geometry": 12, "gather_locality": 6,
+                     "gather_port": 6}, cases
+    assert all(e["equal"] for r in (reps["sort"], reps["scatter"],
+                                     reps["gather_port"])
+               for c in r["cases"].values()
+               for e in (c.values() if "equal" not in c else [c]))
+    port = reps["gather_port"]["cases"]
+    assert port["port positions int32"]["rows"] == bench_point.BENCH_DEFAULTS[
+        "BENCH_ISECT"], port
+    print(f"microbenchmarks: every case equal to numpy {cases}")
+    return cases
+
+
+def render_4k_main_check(rep: dict) -> dict:
+    """21(e'): ``bench_render_4k``'s own ``main`` on the card at
+    ``TOOL_4K_GAUSSIANS`` Gaussians and 1920x1080 (its run in ``rep``):
+    finite, no band truncated, K1 and K3 once a band in the frame and in
+    the Renderer's, whose bands hold the same intersections, and timed."""
+    bands = rep["bands"]
+    want = {"composite_tiles_fwd": bands, "composite_tiles_bwd": 0,
+            "segment_broadcast": bands, "segment_sum_sorted": 0}
+    assert rep["finite"] and not rep["truncated"], rep
+    assert rep["launches_per_frame"] == rep["renderer_launches_per_frame"] \
+        == want, rep
+    assert rep["renderer_band_intersections"] == rep["band_intersections"]
+    assert all(rep[k]["samples"] == 3 for k in ("frame", "renderer_frame",
+                                                 "renderer_numpy")), rep
+    print(f"bench_render_4k main at {rep['width']}x{rep['height']}: {bands} "
+          f"bands, frame {rep['frame']['median_ms']:.3f} ms")
+    return {"bands": bands, "frame_ms": rep["frame"]["median_ms"],
+            "renderer_numpy_ms": rep["renderer_numpy"]["median_ms"]}
+
+
+def run_15k_check(work_dir: Path, counters) -> dict:
+    """21(f): the round-2 64-view run (``tools/run_15k.sh``) at 18(a)'s
+    side: 64 views, ``quality_workflow`` with two stretches of 300 steps
+    standing for the recipe's 7500 each and the downstream stage, then the
+    co-gs smoke for 20 steps; gs-eval equal to the trainer's eval bit for
+    bit, K1-K4 once a step in each counted step, and a non-empty TSDF mesh
+    (after 40 steps the mesh was empty: the rendered depth's median was
+    about 10x the capture's; after 600, past the recipe's first refine at
+    step 500, it is within 5% of it and the mesh has some 300k
+    vertices)."""
+    common = ["--capture", "1spp", "--n-views", str(R15_VIEWS), "--width",
+              str(Q_SIDE), "--height", str(Q_SIDE), "--seed-points",
+              str(Q_SEEDS), "--work-dir", str(work_dir), "--published",
+              str(R15_PUBLISHED), "--device", DEVICE]
+    t0 = time.perf_counter()
+    rep = quality_workflow.main([
+        *common, "--out-dir", str(work_dir / "report"), "--iters",
+        str(R15_ITERS), "--stretch", str(R15_STRETCH), "--downstream"])
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cogs = quality_workflow.main([
+        *common, "--out-dir", str(work_dir / "report_cogs"), "--method",
+        "co-gs", "--iters", str(R15_COGS_ITERS), "--",
+        "--model.use-depth-loss", "True"])
+    cogs_s = time.perf_counter() - t0
+    down = rep["downstream"]
+    step = {k: v // rep["counted"]["steps"]
+            for k, v in rep["counted"]["launches"].items()}
+    cogs_step = {k: v // cogs["counted"]["steps"]
+                 for k, v in cogs["counted"]["launches"].items()}
+    print(f"64-view run at {Q_SIDE}x{Q_SIDE}: {exact_s:.1f} s, gs-eval "
+          f"{[e['psnr'] for e in rep['evals'].values()]} (bit for bit "
+          f"{[e['bit_for_bit'] for e in rep['evals'].values()]}), downstream "
+          f"{down}, launches a step {step}; co-gs smoke {cogs_s:.1f} s, "
+          f"gs-eval {cogs['evals'][R15_COGS_ITERS]['psnr']!r}, launches a "
+          f"step {cogs_step}")
+    assert rep["config"] == "64" and cogs["config"] == "64_cogs"
+    assert all(e["bit_for_bit"] for e in rep["evals"].values()), rep["evals"]
+    assert cogs["evals"][R15_COGS_ITERS]["bit_for_bit"]
+    assert down["gaussian_splat"]["gaussians"] == down["checkpoint_alive"]
+    assert down["render_pose"]["views"] == R15_VIEWS - R15_VIEWS // 8
+    assert down["tsdf_tetra"]["vertices"] > 0 and down["tsdf_tetra"]["faces"] > 0
+    assert len(rep["train_curve"]) == 16
+    for s in (step, cogs_step):
+        assert all(n == rep["counted"]["bands"] for n in s.values()), s
+    return {"exact_s": exact_s, "cogs_s": cogs_s,
+            "psnr": [e["psnr"] for e in rep["evals"].values()],
+            "cogs_psnr": cogs["evals"][R15_COGS_ITERS]["psnr"],
+            "downstream": down,
+            "launches": {"64_step": step, "64_cogs_step": cogs_step}}
+
+
+def refusal_check(work_dir: Path) -> dict:
+    """21(g): the preflight gate on the card: against a copy of the kernel
+    files with no stamp, ``quality_workflow`` on CUDA exits 3 before any
+    work, ``GSTK_SKIP_PREFLIGHT`` unset. (This script stamps the real tree
+    when every phase has passed.)"""
+    for rel in preflight.kernel_files():
+        (work_dir / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(REPO / rel, work_dir / rel)
+    repo, skip = preflight.REPO, os.environ.pop(preflight.SKIP_ENV, None)
+    preflight.REPO = work_dir
+    try:
+        with contextlib.redirect_stderr(sys.stdout):
+            quality_workflow.main(["--capture", "1spp", "--n-views", "64",
+                                   "--work-dir", str(work_dir / "never"),
+                                   "--out-dir", str(work_dir / "never")])
+        raise AssertionError("quality_workflow trained on a missing stamp")
+    except SystemExit as e:
+        code = e.code
+    finally:
+        preflight.REPO = repo
+        if skip is not None:
+            os.environ[preflight.SKIP_ENV] = skip
+    assert code == 3 and not (work_dir / "never").exists(), code
+    print(f"preflight: quality_workflow on CUDA without a stamp exited {code}")
+    return {"exit_code": code}
 
 
 def trace(label, fn, top: int = 8, show: tuple = ()) -> dict:

@@ -10,7 +10,7 @@ and through :class:`gstk_torch.render.renderer.Renderer` from a checkpoint
 of the same scene (SH degree 0, camera at the origin looking down +z).
 It prints the total intersections (the 3-sigma tile squares, as the
 reference counts them), each band's intersection count and the largest,
-whether a band truncated, K1 / K3 launches a frame, and the ms of a frame
+whether a band truncated, K1-K4's launches a frame, and the ms of a frame
 on the device (CUDA events; ``Renderer.render`` keeps the result there)
 and with the numpy copy (``Renderer.get_output_from_pose``, host clock),
 median and min over ``--iters`` after warm-up, beside the card's name and
@@ -28,10 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import tempfile
-import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -40,7 +37,6 @@ import torch
 
 from gstk_torch import resolve_device
 from gstk_torch.core.gaussians import scene_from_numpy
-from gstk_torch.ops import raster_cuda, segment_kernel
 from gstk_torch.ops.projection import project_gaussians
 from gstk_torch.ops.rasterize import (
     RasterizeConfig,
@@ -51,6 +47,13 @@ from gstk_torch.ops.rasterize import (
 )
 from gstk_torch.ops.sh import SH_C0
 from gstk_torch.render.renderer import Renderer
+from gstk_torch.tools import (
+    card,
+    event_samples,
+    host_samples,
+    launches_during,
+    spread,
+)
 from gstk_torch.train.checkpoint import save_scene
 
 W, H = 3840, 2160
@@ -174,44 +177,6 @@ def write_checkpoint(arrays, path: Path) -> Path:
     return save_scene(path, scene, step=0, extras={"sh_degree": 0})
 
 
-def counted(fn) -> Dict[str, int]:
-    """K1 and K3 launches while ``fn`` runs."""
-    kernels = (raster_cuda.composite_tiles_fwd, segment_kernel.segment_broadcast)
-    for k in kernels:
-        k.launches = 0
-    fn()
-    return {k.__name__: k.launches for k in kernels}
-
-
-def device_ms(fn, iters: int):
-    """CUDA-event ms of each of ``iters`` calls of ``fn``."""
-    out = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end))
-    return out
-
-
-def host_ms(fn, iters: int):
-    out = []
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
-
-
-def spread(ms) -> Dict[str, float]:
-    return {"median_ms": statistics.median(ms), "min_ms": min(ms),
-            "samples": len(ms)}
-
-
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser("bench_render_4k")
     ap.add_argument("--gaussians", type=int, default=N_GAUSSIANS)
@@ -226,20 +191,17 @@ def main(argv=None) -> Dict:
                          "twins once, untimed)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    card = dev.type == "cuda"
+    card_run = dev.type == "cuda"
     res: Dict = {"width": args.width, "height": args.height,
                  "gaussians": args.gaussians,
                  "isect_capacity": CONFIG.isect_capacity}
-    if card:
-        res["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip()
+    if card_run:
+        res["card"] = card()
         print(res["card"], flush=True)
     cam, arrays = scene_arrays(args.gaussians, args.width, args.height)
     proj = project(cam, arrays, dev)
     out = {}
-    res["launches_per_frame"] = counted(
+    res["launches_per_frame"] = launches_during(
         lambda: out.update(zip(("img", "alpha", "info"),
                                frame(proj, arrays, cam))))
     per_band = [int(x) for x in out["info"]["band_intersects"].cpu()]
@@ -263,17 +225,17 @@ def main(argv=None) -> Dict:
         rendered = renderer.render(*pose)
         res["renderer_band_intersections"] = [
             int(x) for x in rendered["band_intersects"].cpu()]
-        res["renderer_launches_per_frame"] = counted(
+        res["renderer_launches_per_frame"] = launches_during(
             lambda: renderer.render(*pose))
-        if card:
+        if card_run:
             for _ in range(args.warmup):
                 frame(proj, arrays, cam)
                 renderer.get_output_from_pose(*pose)
-            res["frame"] = spread(device_ms(
+            res["frame"] = spread(event_samples(
                 lambda: frame(proj, arrays, cam), args.iters))
-            res["renderer_frame"] = spread(device_ms(
+            res["renderer_frame"] = spread(event_samples(
                 lambda: renderer.render(*pose), args.iters))
-            res["renderer_numpy"] = spread(host_ms(
+            res["renderer_numpy"] = spread(host_samples(
                 lambda: renderer.get_output_from_pose(*pose), args.iters))
             print(f"frame on the device {res['frame']}; Renderer.render "
                   f"{res['renderer_frame']}; get_output_from_pose (numpy "

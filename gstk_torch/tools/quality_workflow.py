@@ -12,7 +12,20 @@ step from the final checkpoint (K1-K4 launches a step at the run's last
 band count). With ``--published`` the report sets the reference's gs-eval
 JSON beside the final result (PSNR, SSIM, the per-ring means and the
 lowest view, and the difference of each) and, where the reference's docs
-give it, its eval curve beside each stretch's gs-eval.
+give it, its eval curve beside each stretch's gs-eval; a JSON that holds
+several configurations (``published/results_15k.json``, transcribed from
+``docs/RESULTS_15K.md`` and ``docs/metrics_15k.jsonl.gz``) gives the
+entry of this run's name, and for the 64-view run its training curve
+(alive count, intersections and train PSNR every 1000 steps; the
+reference's ``Train Iter (time)`` is a TPU's and is left out). With
+``--downstream`` the reference's toolchain then runs on the final
+checkpoint, each tool a fresh process, timed: gs-export gaussian-splat,
+gs-render pose of the training views and gs-export offline-tsdf
+--meshing tetra, with their counts (the final gs-eval, a fresh process
+too, is held equal to the trainer's eval as every stretch's is).
+
+On CUDA it refuses to start on kernels without a card parity pass
+(:func:`gstk_torch.tools.preflight.require_fresh`).
 
 Each of the reference's published runs is one command (flags after ``--``
 go to gs-train after the recipe's):
@@ -34,6 +47,14 @@ go to gs-train after the recipe's):
                                  ``--max-capacity 2097152
                                  --model.stop-split-at 25000`` to 30k
                                  (``docs/RESULTS_240_FOLLOWUPS.md`` (c))
+  ``docs/RESULTS_15K.md``        ``--capture 1spp --n-views 64
+                                 --downstream``: the round-2 run of
+                                 ``tools/run_15k.sh`` (``raytraced64``, 56
+                                 train / 8 eval), with
+                                 ``--published published/results_15k.json``
+  its co-gs smoke                ``--capture 1spp --n-views 64 --method
+                                 co-gs --iters 1500 --
+                                 --model.use-depth-loss True``
   =============================  ==========================================
 
 The ss 3 30k run is the reference's continuation: its stretches past 15k
@@ -41,10 +62,12 @@ add :data:`SS3_CONTINUATION` after the recipe's flags (the later flag
 wins), as the reference resumed its 15k checkpoint.
 
 The capture's directory is named as the reference named it
-(``raytraced240``, ``raytraced240_ss3``, ``raytraced240_mono``), so the run's
-``experiment_name`` is the reference's; the final gs-eval is copied to
-``eval_<cfg>_torch.json``, ``<cfg>`` the reference's name for the run
-(``_30k`` for a run past 15k steps). Each configuration trains in its own
+(``raytraced240``, ``raytraced240_ss3``, ``raytraced240_mono``, and with
+``--n-views 64`` ``raytraced64``; a rehearsal with another view count
+keeps the 240-view names), so the run's ``experiment_name`` is the
+reference's; the final gs-eval is copied to ``eval_<cfg>_torch.json``,
+``<cfg>`` the reference's name for the run (``64`` for the 64-view run,
+``_30k`` for a run past 15k steps). Each configuration trains in its own
 ``runs_<cfg>``, so a 30k run never resumes a 15k run's checkpoint, and a
 rehearsal in ``runs_<cfg>_stretch<n>``; a capture is reused only if it
 was made with the same arguments.
@@ -88,7 +111,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from gstk_torch.tools import run_quality
+from gstk_torch.tools import card, launches_during, preflight, run_quality
 from gstk_torch.tools.gen_raytraced_sharded import generate_sharded_dataset
 
 EVAL_INTERVAL = 8  # the recipe's eval split
@@ -114,6 +137,7 @@ PUBLISHED_CURVES = {
 }
 GROWTH = re.compile(r"^step (\d+): (.*)$")
 CAPTURES = {"ss3": 3, "1spp": 1}  # rays per pixel axis
+REFERENCE_VIEWS = (240, 64)  # the views of the reference's published captures
 CEILING_SS = 3  # analyze_gt_aliasing's supersampling
 # docs/RESULTS_240_MONO.md: co-gs on the mono dataset
 MONO_FLAGS = ["--model.use-est-depth", "True",
@@ -122,10 +146,19 @@ MONO_FLAGS = ["--model.use-est-depth", "True",
               "--model.use-depth-regularization", "True"]
 
 
-def data_name(capture: str, mono: bool) -> str:
-    """The capture's directory, as the reference named it."""
-    return ("raytraced240" + ("_ss3" if capture == "ss3" else "")
-            + ("_mono" if mono else ""))
+def reference_views(n_views: int) -> int:
+    """The views of the reference's published capture a run of
+    ``n_views`` views stands for: 64 (the round-2 run of
+    ``tools/run_15k.sh``) or 240 (the others; a rehearsal with fewer views
+    keeps that name)."""
+    return n_views if n_views in REFERENCE_VIEWS else 240
+
+
+def data_name(capture: str, mono: bool, n_views: int = 240) -> str:
+    """The capture's directory, as the reference named it
+    (``raytraced240``, ``raytraced64``...)."""
+    return (f"raytraced{reference_views(n_views)}"
+            + ("_ss3" if capture == "ss3" else "") + ("_mono" if mono else ""))
 
 
 def rasterize_mode(flags: List[str]) -> str:
@@ -178,11 +211,12 @@ def continuation_start(capture: str, iters: int,
 
 
 def config_name(capture: str, method: str, mono: bool,
-                flags: List[str], length: int = RECIPE_ITERS) -> str:
+                flags: List[str], length: int = RECIPE_ITERS,
+                n_views: int = 240) -> str:
     """The reference's name of the run, ``eval_<name>.json``:
-    ``240[_ss3][_aa][_mono][_cogs][_30k]``, the last for a run longer than
-    the 15k recipe (``length`` at the recipe's scale)."""
-    return ("240" + ("_ss3" if capture == "ss3" else "")
+    ``<views>[_ss3][_aa][_mono][_cogs][_30k]``, the last for a run longer
+    than the 15k recipe (``length`` at the recipe's scale)."""
+    return (f"{reference_views(n_views)}" + ("_ss3" if capture == "ss3" else "")
             + ("_aa" if rasterize_mode(flags) == "antialiased" else "")
             + ("_mono" if mono else "")
             + ("" if method == "gaussian-splatting"
@@ -219,7 +253,7 @@ def resolve_config(ap: argparse.ArgumentParser, args,
     except ValueError as e:
         ap.error(str(e))
     return method, extra, config_name(args.capture, method, args.mono, extra,
-                                      length)
+                                      length, args.n_views)
 
 
 def runs_name(cfg_name: str, stretch: int) -> str:
@@ -239,9 +273,27 @@ def stretch_flags(args, extra: List[str]) -> List[List[str]]:
             for end in stretch_ends(args.iters, args.stretch)]
 
 
-def published_curve(path: Path, step: int) -> Optional[tuple]:
+def published_entry(path: Path, cfg_name: Optional[str] = None) -> dict:
+    """The reference's published result of the run: its gs-eval JSON
+    ``path``, or the entry ``cfg_name`` of a JSON that holds several
+    (``"configs"``, as ``published/results_15k.json``, transcribed from its
+    docs, does)."""
+    ref = json.loads(Path(path).read_text())
+    if "configs" not in ref:
+        return ref
+    if cfg_name not in ref["configs"]:
+        raise SystemExit(f"{path} publishes {sorted(ref['configs'])}, not "
+                         f"{cfg_name}")
+    return ref["configs"][cfg_name]
+
+
+def published_curve(path: Path, step: int,
+                    cfg_name: Optional[str] = None) -> Optional[tuple]:
     """The reference's (PSNR, SSIM or None) at ``step`` of the run whose
     gs-eval JSON is ``path``, where its docs give it."""
+    curve = published_entry(path, cfg_name).get("curve")
+    if curve is not None:
+        return tuple(curve[str(step)]) if str(step) in curve else None
     return PUBLISHED_CURVES.get(Path(path).name, {}).get(step)
 
 
@@ -257,7 +309,7 @@ def prepare_data(work_dir: Path, capture: str, mono: bool, n_views: int,
     from gstk_torch.data.raytraced import generate_raytraced_dataset
     from gstk_torch.tools import make_mono_depth
 
-    data = Path(work_dir) / data_name(capture, False)
+    data = Path(work_dir) / data_name(capture, False, n_views)
     done: Dict = {"capture": capture}
     made_with = {"n_views": n_views, "img_wh": list(img_wh),
                  "seed_points": seed_points, "rays_per_axis": CAPTURES[capture]}
@@ -284,7 +336,7 @@ def prepare_data(work_dir: Path, capture: str, mono: bool, n_views: int,
               f" in {done['capture_s']:.1f} s", flush=True)
     if not mono:
         return data, done
-    mono_dir = Path(work_dir) / data_name(capture, True)
+    mono_dir = Path(work_dir) / data_name(capture, True, n_views)
     if not (reuse and (mono_dir / "transforms.json").exists()):
         t0 = time.perf_counter()
         done["mono"] = make_mono_depth.main(["--data", str(data), "--out",
@@ -293,11 +345,13 @@ def prepare_data(work_dir: Path, capture: str, mono: bool, n_views: int,
     return mono_dir, done
 
 
-def published_diff(ours: dict, path: Path) -> dict:
-    """The reference's gs-eval JSON ``path`` beside ``ours`` (``psnr``,
-    ``ssim`` and :func:`rings` of the per-view PSNR): its numbers and
-    ours minus its. A JSON without per-view numbers has no rings."""
-    ref = json.loads(Path(path).read_text())
+def published_diff(ours: dict, path: Path,
+                   cfg_name: Optional[str] = None) -> dict:
+    """The reference's gs-eval JSON ``path`` (:func:`published_entry`)
+    beside ``ours`` (``psnr``, ``ssim`` and :func:`rings` of the per-view
+    PSNR): its numbers and ours minus its. A JSON without per-view numbers
+    has no rings."""
+    ref = published_entry(path, cfg_name)
     res = ref["results"]
     out = {"file": Path(path).name, "experiment_name": ref.get("experiment_name"),
            "method_name": ref.get("method_name"),
@@ -410,29 +464,87 @@ def rings(per_view: List[float]) -> dict:
             "mean": float(arr.mean())}
 
 
+def ply_counts(path: Path) -> Dict[str, int]:
+    """The element counts of a PLY file's header (``vertex``, ``face``)."""
+    counts = {}
+    with open(path, "rb") as f:
+        for line in f:
+            words = line.decode("ascii", "replace").split()
+            if words[:1] == ["element"]:
+                counts[words[1]] = int(words[2])
+            elif words[:1] == ["end_header"]:
+                return counts
+    raise ValueError(f"{path}: no PLY header end")
+
+
+def downstream(cfg: Path, out: Path, dev: List[str], log: Path) -> dict:
+    """The reference's toolchain on the run's final checkpoint
+    (``docs/RESULTS_15K.md``), each a fresh ``python -m`` process, timed:
+    ``gs-export gaussian-splat`` (its Gaussian count, beside the
+    checkpoint's alive count: the last refine culls after the last logged
+    step), ``gs-render pose`` of the training views (their count) and
+    ``gs-export offline-tsdf --meshing tetra`` (the mesh's vertices and
+    faces), written under ``out``."""
+    from gstk_torch.train.checkpoint import latest_checkpoint
+
+    with np.load(latest_checkpoint(cfg.parent / "ckpts")) as ckpt:
+        stage = {"checkpoint_alive": int(ckpt[".scene/.alive"].sum())}
+    for name, module, argv in (
+        ("gaussian_splat", "gstk_torch.scripts.export",
+         ["gaussian-splat", "--output-dir", str(out / "export")]),
+        ("render_pose", "gstk_torch.scripts.render",
+         ["pose", "--output-dir", str(out / "renders")]),
+        ("tsdf_tetra", "gstk_torch.scripts.export",
+         ["offline-tsdf", "--meshing", "tetra", "--output-dir",
+          str(out / "export")]),
+    ):
+        t0 = time.perf_counter()
+        if _python_m(module, [*argv, "--load-config", str(cfg), *dev], log):
+            raise SystemExit(f"{module} {argv[0]} failed; see {log}")
+        stage[name] = {"s": time.perf_counter() - t0}
+        print(f"downstream {name}: {stage[name]['s']:.1f} s", flush=True)
+    stage["gaussian_splat"]["gaussians"] = ply_counts(
+        out / "export" / "gaussians.ply")["vertex"]
+    stage["render_pose"]["views"] = len(json.loads(
+        (out / "renders" / "poses.json").read_text()))
+    mesh = ply_counts(out / "export" / "tsdf_mesh.ply")
+    stage["tsdf_tetra"].update(vertices=mesh["vertex"], faces=mesh["face"])
+    return stage
+
+
+def train_curve_beside(rows: List[Dict], published: Dict,
+                       scale: int = 1) -> Dict:
+    """The run's training rows nearest each step of the reference's curve
+    (``num_alive``, ``num_intersects`` and the train ``psnr``) beside it;
+    a rehearsal's step stands for ``scale`` of the recipe's."""
+    train = [r for r in rows if "num_alive" in r]
+    keys = ("num_alive", "num_intersects", "psnr")
+    out = {}
+    for step, ref in published.items():
+        ours = min(train, key=lambda r: abs(r["step"] * scale - int(step)))
+        out[step] = {"step": ours["step"],
+                     **{k: ours.get(k) for k in keys},
+                     "published": {k: ref[k] for k in keys}}
+    return out
+
+
 def counted_steps(argv: List[str], steps: int) -> dict:
     """Train ``steps`` steps in this process from the run's last
     checkpoint (``argv`` resumes it), the evals off, and count K1-K4."""
-    from gstk_torch.ops import raster_cuda, segment_kernel
     from gstk_torch.scripts.train import main as train_main
     from gstk_torch.train.trainer import Trainer
 
-    wrappers = (raster_cuda.composite_tiles_fwd,
-                raster_cuda.composite_tiles_bwd,
-                segment_kernel.segment_broadcast,
-                segment_kernel.segment_sum_sorted)
-    for f in wrappers:
-        f.launches = 0
     eval_all = Trainer.eval_all
     Trainer.eval_all = lambda self, step: {}
+    run = {}
     try:
-        trainer = train_main(argv)
+        launches = launches_during(lambda: run.update(trainer=train_main(argv)))
     finally:
         Trainer.eval_all = eval_all
+    trainer = run["trainer"]
     return {"steps": steps, "bands": trainer.raster_cfg.bands,
             "isect_capacity": trainer.raster_cfg.isect_capacity,
-            "capacity": trainer.state.scene.capacity,
-            "launches": {f.__name__: f.launches for f in wrappers}}
+            "capacity": trainer.state.scene.capacity, "launches": launches}
 
 
 def main(argv=None) -> dict:
@@ -445,10 +557,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--width", type=int, default=800)
     ap.add_argument("--height", type=int, default=800)
     ap.add_argument("--seed-points", type=int, default=160_000)
+    ap.add_argument("--downstream", action="store_true",
+                    help="then gs-export, gs-render pose and the TSDF mesh "
+                         "on the final checkpoint")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
     method, extra, cfg_name = resolve_config(ap, args, extra)
+    preflight.require_fresh(args.device, "quality_workflow")
     t_start = time.perf_counter()
     dev = [] if args.device is None else ["--device", args.device]
     out = args.out_dir
@@ -469,10 +585,7 @@ def main(argv=None) -> dict:
                     "capture": args.capture, "mono": args.mono,
                     "extra_flags": extra, "calls": calls}
     if args.device in (None, "cuda"):
-        report["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip()
+        report["card"] = card()
         print(report["card"], flush=True)
 
     data, report["data"] = prepare_data(
@@ -538,7 +651,7 @@ def main(argv=None) -> dict:
             entry["bit_for_bit"] = (res["psnr"] == trained[-1]["eval_psnr"]
                                     and res["ssim"] == trained[-1]["eval_ssim"])
         ref = (published_curve(args.published,
-                               iters * step_scale(args.stretch))
+                               iters * step_scale(args.stretch), cfg_name)
                if args.published is not None else None)
         if ref is not None:
             entry["published_psnr"], entry["published_ssim"] = ref
@@ -551,8 +664,22 @@ def main(argv=None) -> dict:
     shutil.copy(out / f"eval_{final}.json", result_json)
     if args.published is not None:
         report["published"] = published_diff(report["evals"][final],
-                                             args.published)
+                                             args.published, cfg_name)
         print(published_line(report["published"]), flush=True)
+        pub = published_entry(args.published, cfg_name)
+        if "train_curve" in pub:
+            report["train_curve"] = train_curve_beside(
+                rows, pub["train_curve"]["rows"], step_scale(args.stretch))
+    if args.downstream:
+        report["downstream"] = {
+            "gs_eval": {k: report["evals"][final].get(k) for k in
+                        ("psnr", "ssim", "gs_eval_s", "bit_for_bit")},
+            **downstream(cfg, args.work_dir / f"downstream_{cfg_name}", dev,
+                         log)}
+        if args.published is not None:
+            report["downstream"]["published"] = published_entry(
+                args.published, cfg_name).get("downstream")
+        print(f"downstream: {report['downstream']}", flush=True)
 
     text = log.read_text()
     events = [(int(m.group(1)), m.group(2)) for m in

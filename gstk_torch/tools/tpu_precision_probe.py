@@ -205,7 +205,8 @@ def main(argv=None) -> dict:
             ev = {**{k: res["results"][k] for k in ("psnr", "ssim")},
                   **qw.rings(res["per_image"]["psnr"])}
             if args.published is not None:
-                ev["published"] = qw.published_diff(ev, args.published)
+                ev["published"] = qw.published_diff(ev, args.published,
+                                                    cfg_name)
                 print(f"{label}: " + qw.published_line(ev["published"]),
                       flush=True)
             report[f"eval_{label}"] = ev
@@ -221,7 +222,7 @@ def main(argv=None) -> dict:
             for step, psnr, _ in report["trainer_evals"]
             for end in [step if step in ends else step + 1] if end in ends
             for ref in [qw.published_curve(
-                args.published, end * qw.step_scale(args.stretch))]
+                args.published, end * qw.step_scale(args.stretch), cfg_name)]
             if ref is not None}
     report["alive_end"] = [r["num_alive"] for r in rows if "num_alive" in r][-1]
     report["alive"] = qw.alive_summary(rows)
