@@ -239,11 +239,20 @@ line:
      ``AA_SCALES``, where the compensation runs from under 0.05 to over
      0.9; (c) co-gs with sensor depth, mono co-gs and antialiased vanilla
      on (a)'s capture, each through ``quality_workflow`` (exact cameras,
-     40 steps in two stretches in child processes, gs-eval equal to the
-     trainer's final eval, two counted steps here) and through
-     ``tpu_precision_probe --rounded fullmat`` (40 steps here, the
+     20 steps in two stretches in child processes, the second resuming
+     the first's checkpoint, gs-eval equal to the trainer's final eval,
+     two counted steps here) and through
+     ``tpu_precision_probe --rounded fullmat`` (20 steps here, the
      trainer's eval equal to the rounded gs-eval), after which the exact
-     camera and SH functions are back in place; the counters reset just
+     camera and SH functions are back in place; (d) the surface-gs
+     refinement (``--method surface-gs --iters 40 --stretch 10``: the
+     vanilla recipe to step 20, standing for 15k, then surface-gs from that
+     checkpoint in two stretches of 10, standing for 16k and 17k) through
+     both, gs-eval equal to the trainer's eval at every stretch, the
+     refinement's final checkpoint against the vanilla one it resumed
+     (``frozen_check``: no lane born, the means' moments only decayed and
+     no mean moved without the checkpoint's momentum), in both the exact
+     and the rounded run; the counters reset just
      before each run and read just after;
   20. the largest operating points: (a) ``bench_render_4k``'s point at
      full size (3840x2160, 300k Gaussians, ``bands=0``, 2^20 a band): 13
@@ -532,13 +541,16 @@ Q_STRETCHES, ONE_BAND_ISECT = (20, 40), 1 << 22
 # runs (two stretches through quality_workflow, one through the probe);
 # the antialiased step's log-scales, wide enough that sub-pixel Gaussians
 # have a compensation far below 1
-C_ITERS, C_FIRST = 40, 20
+C_ITERS, C_FIRST = 20, 10
 AA_SCALES = (-7.5, -2.5)
 CONFIGS = {  # quality_workflow / probe flags, gs-train flags
     "240_cogs": (["--method", "co-gs"], []),
     "240_mono_cogs": (["--mono"], []),
     "240_aa": ([], ["--model.rasterize-mode", "antialiased"]),
 }
+# the surface-gs refinement: stretches of 10 steps, two of the vanilla
+# recipe standing for 7500 each, then two of surface-gs for 1000 each
+REFINE_FLAGS, R_ITERS, R_STRETCH = ["--method", "surface-gs"], 40, 10
 # phase 20: the 4K frame's timed repeats; the continuation's seed cloud
 # (7,500 seeds fill 0.92 of 8192 lanes at headroom 1, past the 0.85 growth
 # threshold), its two gs-train runs and the flags the resume changes; the
@@ -3750,12 +3762,12 @@ def configs_phase(work_dir: Path, counters) -> dict:
     """Phase 19: the reference's other published configurations at a small
     size: the 1-spp capture on the card against the CPU and its mono
     variant, an antialiased step through the kernels against the plain
-    step, and short runs of co-gs, mono co-gs and the antialiased mode with
-    exact and rounded cameras; the counters reset just before each run and
-    read just after."""
+    step, and short runs of co-gs, mono co-gs, the antialiased mode and
+    the surface-gs refinement with exact and rounded cameras; the counters
+    reset just before each run and read just after."""
     phase("19 configurations: the 1-spp capture and its mono variant, the "
-          "antialiased step vs plain, co-gs / mono co-gs / antialiased "
-          "through quality_workflow and the probe")
+          "antialiased step vs plain, co-gs / mono co-gs / antialiased / "
+          "the surface-gs refinement through quality_workflow and the probe")
     t0 = time.perf_counter()
     launches = {}
     capture = capture_1spp_check(work_dir)
@@ -3766,6 +3778,10 @@ def configs_phase(work_dir: Path, counters) -> dict:
         runs[name] = config_runs(work_dir / f"cfg_{name}", name, flags,
                                  extra, counters)
         launches.update(runs[name].pop("launches"))
+    runs["240_surfacegs"] = config_runs(
+        work_dir / "cfg_240_surfacegs", "240_surfacegs", REFINE_FLAGS, [],
+        counters, iters=R_ITERS, stretch=R_STRETCH)
+    launches.update(runs["240_surfacegs"].pop("launches"))
     PROFILER.totals.clear()
     PROFILER.counts.clear()
     loaded = [m for m in ("PIL", "cv2", "yaml") if m in sys.modules]
@@ -3885,6 +3901,8 @@ def config_runs(work_dir: Path, name: str, flags: list, extra: list,
     evals = rep["evals"]
     assert rep["config"] == name, rep["config"]
     assert evals[iters]["bit_for_bit"], evals
+    if "refinement" in rep:
+        assert all(e["bit_for_bit"] for e in evals.values()), evals
     assert all(math.isfinite(e["psnr"]) for e in evals.values()), evals
     assert all(n == counted["bands"] for n in step.values()), counted
     for f in counters:
@@ -3912,7 +3930,14 @@ def config_runs(work_dir: Path, name: str, flags: list, extra: list,
     assert probe["screen_shift"]["max_px"] > 0
     assert probe_launches["composite_tiles_bwd"] >= iters, probe_launches
     assert probe_launches["composite_tiles_bwd"] == probe_launches["segment_sum_sorted"]
-    return {"exact_s": exact_s, "probe_s": probe_s,
+    refinement = {k: r["refinement"] for k, r in (("exact", rep),
+                                                  ("rounded", probe))
+                  if "refinement" in r}
+    if refinement:
+        print(f"{name}: refinement {refinement}")
+    assert all(r["frozen"] for r in refinement.values()), refinement
+    return {"exact_s": exact_s, "probe_s": probe_s, **(
+                {"refinement": refinement} if refinement else {}),
             "exact_psnr": [e["psnr"] for e in evals.values()],
             "rounded_psnr": probe["eval_rounded"]["psnr"],
             "rounded_scored_exact_psnr": probe["eval_exact"]["psnr"],

@@ -77,7 +77,9 @@ from typing import Callable, Dict, List
 
 import torch
 
-PROFILER_SESSIONS = 3  # sessions tried before a kernel counts as unrecorded
+# sessions tried before a kernel counts as unrecorded: on the card CUPTI has
+# recorded nothing for two sessions and everything in the next
+PROFILER_SESSIONS = 5
 
 
 def kernel_device_ms(fn, kernel_name, iters: int,
@@ -121,9 +123,9 @@ def kernel_device_ms(fn, kernel_name, iters: int,
             if names:
                 out["names"] = {e.key[:160]: e.count for e in events}
             return out
-        names = sorted({e.key[:100] for e in device})
+        recorded = sorted({e.key[:100] for e in device})
         print(f"  profiler session {session} of {PROFILER_SESSIONS} recorded no "
-              f"launch of {label}; device events recorded: {names}")
+              f"launch of {label}; device events recorded: {recorded}")
     raise RuntimeError(f"the profiler recorded no launch of {label} in "
                        f"{PROFILER_SESSIONS} sessions of {iters} calls")
 

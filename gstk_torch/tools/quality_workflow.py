@@ -55,11 +55,30 @@ go to gs-train after the recipe's):
   its co-gs smoke                ``--capture 1spp --n-views 64 --method
                                  co-gs --iters 1500 --
                                  --model.use-depth-loss True``
+  ``docs/RESULTS_240.md``,       ``--capture 1spp --method surface-gs
+  its surface-gs refinement      --iters 17000``: the vanilla 15k
+                                 checkpoint resumed as surface-gs, two
+                                 stretches to 16000 and 17000, with
+                                 ``--published
+                                 published/results_240_surfacegs.json``
   =============================  ==========================================
 
 The ss 3 30k run is the reference's continuation: its stretches past 15k
 add :data:`SS3_CONTINUATION` after the recipe's flags (the later flag
 wins), as the reference resumed its 15k checkpoint.
+
+The surface-gs refinement is the reference's ``run_quality.sh ...
+surface-gs 17000`` resuming its vanilla 15k checkpoint: ``--method
+surface-gs`` with ``--iters`` past the recipe's 15k steps resumes the
+step-15000 checkpoint of the vanilla configuration's own run (``240`` in
+``runs_240``, trained first unless it is there) and trains surface-gs in
+``runs_240_surfacegs`` in stretches of 1000 steps to ``--iters``; the
+vanilla checkpoint's ``--load-dir`` is passed only while the refinement
+has no checkpoint of its own, so a resumed stretch never goes back to it.
+The report holds each run's statistics apart (``vanilla`` and the
+refinement's own) and checks the refinement's final checkpoint against
+the vanilla one (:func:`frozen_check`). With ``--iters`` at or below 15k,
+surface-gs trains from the seeds like the other methods.
 
 The capture's directory is named as the reference named it
 (``raytraced240``, ``raytraced240_ss3``, ``raytraced240_mono``, and with
@@ -69,8 +88,9 @@ reference's; the final gs-eval is copied to ``eval_<cfg>_torch.json``,
 ``<cfg>`` the reference's name for the run (``64`` for the 64-view run,
 ``_30k`` for a run past 15k steps). Each configuration trains in its own
 ``runs_<cfg>``, so a 30k run never resumes a 15k run's checkpoint, and a
-rehearsal in ``runs_<cfg>_stretch<n>``; a capture is reused only if it
-was made with the same arguments.
+rehearsal in ``runs_<cfg>_stretch<n>``; each run keeps there the record
+of its stretches (``stretches.json``, :func:`run_plan`); a capture is
+reused only if it was made with the same arguments.
 
 Everything goes under ``--work-dir``; what a report needs (the gs-eval
 JSONs, ``metrics.jsonl``, the trainer's log, ``report.md`` and
@@ -78,7 +98,7 @@ JSONs, ``metrics.jsonl``, the trainer's log, ``report.md`` and
 A call cut short is picked up by the same command: it keeps the capture,
 resumes the run from its newest checkpoint, keeps the gs-eval of every
 stretch an earlier call finished, appends to ``train.log``, and the
-report says which call ran each stretch.
+report says which call finished each stretch.
 
 The ceiling analysis compares the views' 1-spp GT with a 3x3 supersampled
 render, so it is the ceiling of the ``1spp`` capture's own GT; on the
@@ -90,7 +110,10 @@ Usage (on the card):
       --published eval_240.json --out-dir runs/quality/report
 CPU rehearsal at a small size (a ``--stretch`` that divides 7500 stands
 for the recipe's 7500 steps, so ``--iters 80 --stretch 20`` rehearses a
-30k configuration and its continuation starts at step 40):
+30k configuration and its continuation starts at step 40; a refinement's
+stretch in a rehearsal is as long and stands for its 1000 steps, so
+``--method surface-gs --iters 40 --stretch 10`` rehearses the 17k
+refinement of the vanilla run's step 20):
   python -m gstk_torch.tools.quality_workflow --device cpu --n-views 24 \\
       --width 64 --height 64 --seed-points 2000 --iters 40 \\
       --stretch 20 -- --isect-capacity 16384
@@ -99,6 +122,7 @@ for the recipe's 7500 steps, so ``--iters 80 --stretch 20`` rehearses a
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import shutil
@@ -107,7 +131,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -135,6 +159,10 @@ PUBLISHED_CURVES = {
                               22500: (26.461, None),
                               30000: (26.331, 0.9414)},
 }
+# docs/RESULTS_240.md, "surface-gs (frozen-means refinement)": the vanilla
+# 15k checkpoint resumed as surface-gs to 17000, its gs-eval at 16k and 17k
+REFINE_METHOD, REFINE_FROM = "surface-gs", "gaussian-splatting"
+REFINE_ITERS, REFINE_STRETCH = 17000, 1000
 GROWTH = re.compile(r"^step (\d+): (.*)$")
 CAPTURES = {"ss3": 3, "1spp": 1}  # rays per pixel axis
 REFERENCE_VIEWS = (240, 64)  # the views of the reference's published captures
@@ -210,18 +238,61 @@ def continuation_start(capture: str, iters: int,
     return start
 
 
+@dataclasses.dataclass(frozen=True)
+class Stretch:
+    """One gs-train call of a run: the step it trains to, the recipe's step
+    that stands for, the method it trains, gs-train's flags after the
+    recipe's, and for a refinement's stretch the step of the vanilla
+    checkpoint the refinement starts from."""
+
+    end: int
+    recipe_step: int
+    method: str
+    flags: List[str]
+    base: Optional[int] = None
+
+
+def plan(capture: str, method: str, iters: int, stretch: int = STRETCH,
+         extra: List[str] = ()) -> List[Stretch]:
+    """The run's stretches: every ``stretch`` steps to ``iters``, with
+    ``extra`` and past the ss 3 15k checkpoint :data:`SS3_CONTINUATION`
+    after it; for the surface-gs refinement (surface-gs past the recipe's
+    15k steps) the vanilla recipe's stretches to 15k, then surface-gs's
+    stretches of 1000 steps (in a rehearsal of ``stretch`` steps, each
+    standing for 1000). Raises unless the stretches end at the steps their
+    layout needs."""
+    scale = step_scale(stretch)
+    if method != REFINE_METHOD or iters * scale <= RECIPE_ITERS:
+        start = continuation_start(capture, iters, stretch)
+        return [Stretch(end, end * scale, method, list(extra) + (
+            SS3_CONTINUATION if start is not None and end > start else []))
+                for end in stretch_ends(iters, stretch)]
+    base = RECIPE_ITERS // scale
+    length = REFINE_STRETCH if scale == 1 else stretch
+    if (iters - base) % length:
+        raise ValueError(f"the refinement resumes step {base} in stretches of "
+                         f"{length} steps, which do not end at {iters}")
+    return ([Stretch(end, end * scale, REFINE_FROM, list(extra))
+             for end in stretch_ends(base, stretch)]
+            + [Stretch(end, RECIPE_ITERS + (end - base) // length
+                       * REFINE_STRETCH, method, list(extra), base)
+               for end in range(base + length, iters + 1, length)])
+
+
 def config_name(capture: str, method: str, mono: bool,
                 flags: List[str], length: int = RECIPE_ITERS,
                 n_views: int = 240) -> str:
     """The reference's name of the run, ``eval_<name>.json``:
-    ``<views>[_ss3][_aa][_mono][_cogs][_30k]``, the last for a run longer
-    than the 15k recipe (``length`` at the recipe's scale)."""
+    ``<views>[_ss3][_aa][_mono][_cogs|_surfacegs][_30k]``, the last for a
+    run longer than the 15k recipe, or than the 17k refinement for
+    surface-gs (``length`` at the recipe's scale)."""
+    longest = REFINE_ITERS if method == REFINE_METHOD else RECIPE_ITERS
     return (f"{reference_views(n_views)}" + ("_ss3" if capture == "ss3" else "")
             + ("_aa" if rasterize_mode(flags) == "antialiased" else "")
             + ("_mono" if mono else "")
             + ("" if method == "gaussian-splatting"
                else "_" + method.replace("-", ""))
-            + (f"_{length / 1000:g}k" if length > RECIPE_ITERS else ""))
+            + (f"_{length / 1000:g}k" if length > longest else ""))
 
 
 def add_config_args(ap: argparse.ArgumentParser) -> None:
@@ -233,7 +304,9 @@ def add_config_args(ap: argparse.ArgumentParser) -> None:
                     help="gaussian-splatting (co-gs with --mono)")
     ap.add_argument("--published", type=Path, default=None,
                     help="the reference's gs-eval JSON of this configuration")
-    ap.add_argument("--iters", type=int, default=RECIPE_ITERS)
+    ap.add_argument("--iters", type=int, default=RECIPE_ITERS,
+                    help="the recipe's 15000; surface-gs past it is the "
+                         "refinement of the vanilla 15k checkpoint")
     ap.add_argument("--stretch", "--first-stretch", type=int, default=STRETCH,
                     help="steps a stretch (the recipe's 7500)")
 
@@ -241,19 +314,23 @@ def add_config_args(ap: argparse.ArgumentParser) -> None:
 def resolve_config(ap: argparse.ArgumentParser, args,
                    extra: List[str]) -> tuple:
     """(method, gs-train flags after the recipe's, the reference's name of
-    the run) of :func:`add_config_args`' options; ``--mono`` puts its four
+    each method's run, its :func:`plan`) of :func:`add_config_args`'
+    options: the run's, and for the refinement the vanilla one's it
+    resumes (``240`` for ``240_surfacegs``); ``--mono`` puts its four
     flags before ``extra``."""
     method = args.method or ("co-gs" if args.mono else "gaussian-splatting")
     if args.mono and method != "co-gs":
         ap.error("--mono trains co-gs")
     extra = (list(MONO_FLAGS) if args.mono else []) + list(extra)
     try:
-        continuation_start(args.capture, args.iters, args.stretch)
-        length = args.iters * step_scale(args.stretch)
+        stretches = plan(args.capture, method, args.iters, args.stretch, extra)
     except ValueError as e:
         ap.error(str(e))
-    return method, extra, config_name(args.capture, method, args.mono, extra,
-                                      length, args.n_views)
+    names = {st.method: config_name(
+        args.capture, st.method, args.mono, extra, RECIPE_ITERS
+        if st.method != method else stretches[-1].recipe_step, args.n_views)
+        for st in stretches}
+    return method, extra, names, stretches
 
 
 def runs_name(cfg_name: str, stretch: int) -> str:
@@ -264,13 +341,143 @@ def runs_name(cfg_name: str, stretch: int) -> str:
         "" if step_scale(stretch) == 1 else f"_stretch{stretch}")
 
 
-def stretch_flags(args, extra: List[str]) -> List[List[str]]:
-    """gs-train's flags after the recipe's for each stretch: ``extra``, and
-    past the ss 3 15k checkpoint :data:`SS3_CONTINUATION` after them."""
-    start = continuation_start(args.capture, args.iters, args.stretch)
-    return [list(extra) + (SS3_CONTINUATION
-                           if start is not None and end > start else [])
-            for end in stretch_ends(args.iters, args.stretch)]
+def resume_flags(st: Stretch, data: Path, runs_of: Dict[str, Path]
+                 ) -> List[str]:
+    """gs-train's ``--load-dir`` of the vanilla checkpoint a refinement's
+    stretch starts from while the refinement has no checkpoint of its own
+    (with one, :func:`run_quality.train_argv` resumes it, and a vanilla
+    ``--load-dir`` after it would win); [] otherwise. ``runs_of`` holds
+    each method's directory of runs. Stops unless the vanilla run's newest
+    checkpoint is the one of step ``st.base``, or where the refinement's
+    run holds surface-gs trained from the seeds."""
+    if st.base is None:
+        return []
+    own = run_quality.checkpoint_step(
+        run_quality.run_dir(data, runs_of[st.method], st.method))
+    if own > st.base:
+        return []
+    if own:
+        raise SystemExit(
+            f"{runs_of[st.method]} holds {st.method} trained from the seeds "
+            f"to step {own}, not the refinement of step {st.base}; remove it "
+            "or choose another --work-dir")
+    vanilla = run_quality.run_dir(data, runs_of[REFINE_FROM], REFINE_FROM)
+    step = run_quality.checkpoint_step(vanilla)
+    if step != st.base:
+        raise SystemExit(f"the refinement resumes step {st.base} of {vanilla}"
+                         f", whose newest checkpoint is of step {step}")
+    return ["--load-dir", str(vanilla / "ckpts")]
+
+
+def run_plan(stretch_plan: List[Stretch], data: Path,
+             runs_of: Dict[str, Path], train: Callable, score: Callable,
+             scored: Callable = lambda st: True, dev: List[str] = ()
+             ) -> Dict[int, dict]:
+    """Train and score the plan's stretches, picking up what earlier calls
+    did; returns the record's entry of each stretch trained or scored, by
+    its end.
+
+    Each run keeps the record of its stretches beside its checkpoints
+    (``stretches.json`` in its directory of runs, ``runs_of`` by method),
+    one entry a stretch, so a run is trained once whichever command reaches
+    it first (the refinement and the vanilla configuration share the
+    vanilla run). A stretch is trained unless its run's newest checkpoint
+    has reached its end, by one :func:`run_quality.main` call through
+    ``train(st, argv)``, whose dict is recorded with the call's method,
+    flags, vanilla ``--load-dir`` (:func:`resume_flags`) and wall time; a
+    stretch that is not ``scored`` leaves that to the next one where it
+    has the same method and flags (one gs-train call to the later end).
+    A ``scored`` stretch is then scored unless its entry says it was:
+    ``score(st, run_dir)``, recorded with ``scored``, which stops if the
+    run is already past the stretch's end."""
+    entries = {}
+    for i, st in enumerate(stretch_plan):
+        later = stretch_plan[i + 1:i + 2]
+        if (not scored(st) and later
+                and (later[0].method, later[0].flags) == (st.method, st.flags)):
+            continue
+        runs = runs_of[st.method]
+        rd = run_quality.run_dir(data, runs, st.method)
+        record = runs / "stretches.json"
+        done = {s["iters"]: s for s in (json.loads(record.read_text())
+                                        if record.exists() else [])}
+        entry = done.get(st.end, {"iters": st.end})
+        save = lambda: record.write_text(json.dumps(
+            list({**done, st.end: entry}.values()), indent=1))
+        if run_quality.checkpoint_step(rd) < st.end:
+            resume = resume_flags(st, data, runs_of)
+            t0 = time.perf_counter()
+            got = train(st, [str(data), str(runs), st.method, str(st.end),
+                             *dev, "--", *st.flags, *resume])
+            entry = {"iters": st.end, "method": st.method, "flags": st.flags,
+                     "load_dir": resume[1] if resume else None,
+                     "wall_s": time.perf_counter() - t0, **got}
+            save()
+            print(f"stretch to step {st.end} ({st.method}"
+                  + (f", from {resume[1]}" if resume else "")
+                  + f"): {entry['wall_s']:.1f} s", flush=True)
+        else:
+            print(f"stretch to step {st.end} ({st.method}): trained by an "
+                  "earlier call", flush=True)
+        if scored(st) and not entry.get("scored"):
+            if run_quality.checkpoint_step(rd) > st.end:
+                raise SystemExit(f"{rd} is past step {st.end}, which no call "
+                                 "scored; remove it to train again")
+            entry.update(score(st, rd), scored=True)
+            save()
+        entries[st.end] = entry
+    return entries
+
+
+def checkpoint_facts(run: Path) -> dict:
+    """The alive count and the raster bands of the run's newest
+    checkpoint."""
+    from gstk_torch.train.checkpoint import (latest_checkpoint, peek_group,
+                                             peek_meta)
+
+    path = latest_checkpoint(Path(run) / "ckpts")
+    return {"alive": int(peek_group(path)["alive"].sum()),
+            "bands": int(peek_meta(path).get("bands", 1))}
+
+
+def frozen_check(start: Path, end: Path) -> dict:
+    """The refinement's checkpoint ``end`` against the vanilla checkpoint
+    ``start`` it resumed. surface-gs's means are gstk_tpu's frozen group:
+    a zero gradient that Adam still steps on, so each step in between only
+    decays their moments (by ``b1`` and ``b2``) and moves a mean by the
+    momentum its checkpoint carried. Reports the capacities and alive
+    counts, the lanes alive at the end that were not at the start (a split
+    or a duplicate), the alive means that moved and by how much at most,
+    those of them whose checkpoint momentum was zero, and the moment
+    entries above the start's decayed by the Adam steps in between (a
+    gradient got in); ``frozen`` when the capacity is the same and the last
+    three counts are 0."""
+    from gstk_torch.train.checkpoint import peek_group
+    from gstk_torch.train.optim import OptimizerConfig
+
+    a, b = peek_group(start), peek_group(end)
+    out = {"checkpoints": [Path(start).name, Path(end).name],
+           "capacity": [len(a["alive"]), len(b["alive"])],
+           "alive": [int(a["alive"].sum()), int(b["alive"].sum())],
+           "adam_steps": b["count"] - a["count"]}
+    if len(a["alive"]) != len(b["alive"]):
+        return {**out, "frozen": False}
+    adam = OptimizerConfig()
+    moved = (a["value"] != b["value"]).any(-1) & b["alive"]
+    # float32 decay against float64 powers: 1e-3 of slack over 2k steps
+    grew = sum(int((np.abs(b[m]) > np.abs(a[m]).astype(np.float64) * beta
+                    ** out["adam_steps"] * (1 + 1e-3) + 1e-37).sum())
+               for m, beta in (("mu", adam.b1), ("nu", adam.b2)))
+    out.update(lanes_born=int((b["alive"] & ~a["alive"]).sum()),
+               means_moved=int(moved.sum()),
+               max_mean_shift=float(np.abs(b["value"] - a["value"])[
+                   b["alive"]].max(initial=0.0)),
+               moved_without_momentum=int(
+                   (moved & (a["mu"] == 0).all(-1)).sum()),
+               moments_grown=grew)
+    out["frozen"] = (out["lanes_born"] == out["moved_without_momentum"]
+                     == out["moments_grown"] == 0)
+    return out
 
 
 def published_entry(path: Path, cfg_name: Optional[str] = None) -> dict:
@@ -346,16 +553,26 @@ def prepare_data(work_dir: Path, capture: str, mono: bool, n_views: int,
 
 
 def published_diff(ours: dict, path: Path,
-                   cfg_name: Optional[str] = None) -> dict:
+                   cfg_name: Optional[str] = None,
+                   step: Optional[int] = None) -> dict:
     """The reference's gs-eval JSON ``path`` (:func:`published_entry`)
     beside ``ours`` (``psnr``, ``ssim`` and :func:`rings` of the per-view
-    PSNR): its numbers and ours minus its. A JSON without per-view numbers
-    has no rings."""
+    PSNR): its numbers and ours minus its; with ``step`` (the recipe's)
+    before the JSON's checkpoint, its eval curve's PSNR and SSIM there,
+    where the curve has both. A JSON without per-view numbers (or a step
+    of the curve) has no rings."""
     ref = published_entry(path, cfg_name)
     res = ref["results"]
+    at = (published_curve(path, step, cfg_name)
+          if step is not None and str(step) != ref.get("checkpoint") else None)
+    if at is not None and at[1] is not None:
+        ref = {**ref, "results": {"psnr": at[0], "ssim": at[1]},
+               "checkpoint": str(step), "per_image": {}}
+        res = ref["results"]
     out = {"file": Path(path).name, "experiment_name": ref.get("experiment_name"),
            "method_name": ref.get("method_name"),
            "checkpoint": ref.get("checkpoint"),
+           "precision": ref.get("precision", "as the JSON holds them"),
            "psnr": res["psnr"], "ssim": res["ssim"],
            "d_psnr": ours["psnr"] - res["psnr"],
            "d_ssim": ours["ssim"] - res["ssim"]}
@@ -376,6 +593,9 @@ def published_line(diff: dict) -> str:
     """One printed line of :func:`published_diff`."""
     line = (f"vs {diff['file']}: PSNR {diff['psnr']:.3f} ({diff['d_psnr']:+.3f})"
             f", SSIM {diff['ssim']:.4f} ({diff['d_ssim']:+.4f})")
+    if isinstance(diff.get("precision"), dict):
+        line += (f" (published to {diff['precision']['psnr']:g} dB and "
+                 f"{diff['precision']['ssim']:g})")
     if "ring_means" in diff:
         line += (", rings " + " / ".join(f"{m:.2f} ({d:+.2f})" for m, d in zip(
             diff["ring_means"], diff["d_ring_means"]))
@@ -395,9 +615,10 @@ def _python_m(module: str, argv: List[str], log: Optional[Path] = None) -> int:
                                stderr=subprocess.STDOUT)
 
 
-def lane_spans(events: List, start: int) -> List:
-    """(first step, lanes) spans from the capacity growths."""
-    spans = [(0, start)]
+def lane_spans(events: List, start: int, first: int = 0) -> List:
+    """(first step, lanes) spans from the capacity growths, the run's first
+    step ``first`` at ``start`` lanes."""
+    spans = [(first, start)]
     for step, msg in events:
         m = re.match(r"Growing Gaussian capacity (\d+) -> (\d+)", msg)
         if m:
@@ -452,7 +673,78 @@ def alive_summary(rows: List[Dict]) -> dict:
     return {"peak": peak,
             "peak_step": next(s for s, a in alive if a == peak),
             "every_1000": {k: min(alive, key=lambda x: abs(x[0] - k))[1]
-                           for k in range(0, alive[-1][0] + 1, 1000)}}
+                           for k in range(-(-alive[0][0] // 1000) * 1000,
+                                          alive[-1][0] + 1, 1000)}}
+
+
+def run_stats(rows: List[Dict], events: List, lanes: int) -> dict:
+    """One run's statistics: its growth counts, its ``ITER_TRAIN_TIME`` at
+    each capacity (the first logged step at ``lanes`` lanes), its alive
+    counts and its most intersections, from its metrics ``rows`` and
+    growth ``events``."""
+    alive = [r for r in rows if "num_alive" in r]
+    return {"growth_counts": growth_counts(events),
+            "iter_ms_by_lanes": iter_ms_by_lanes(
+                rows, lane_spans(events, lanes, rows[0]["step"])),
+            "alive_end": alive[-1]["num_alive"], "alive": alive_summary(rows),
+            "num_intersects_max": max(r.get("num_intersects", 0)
+                                      for r in rows)}
+
+
+def plan_stats(stretch_plan: List[Stretch], entries: Dict[int, dict],
+               data: Path, runs_of: Dict[str, Path]) -> dict:
+    """The report's statistics of the plan's runs, from the metrics of
+    each run and its record's ``entries`` (:func:`run_plan`): the growth
+    events and the device peak at each capacity of every gs-train call,
+    and :func:`run_stats` (the first logged step at the seeds' start
+    capacity); for the refinement those of its own steps (at the vanilla
+    checkpoint's capacity), the vanilla run's under ``vanilla``, and under
+    ``refinement`` the alive count and bands of the vanilla checkpoint and
+    of the refinement's at each stretch end it scored, and
+    :func:`frozen_check` of its final checkpoint against the vanilla
+    one."""
+    from gstk_torch.train.checkpoint import latest_checkpoint, peek_capacity
+
+    run_dirs = {m: run_quality.run_dir(data, r, m) for m, r in runs_of.items()}
+    events = {m: [] for m in run_dirs}
+    peaks: Dict[int, float] = {}
+    for st in stretch_plan:
+        e = entries.get(st.end, {})
+        events[st.method] += [tuple(x) for x in e.get("growth_events", [])]
+        for lanes, mib in e.get("device_peak_by_lanes", {}).items():
+            peaks[int(lanes)] = max(mib, peaks.get(int(lanes), 0.0))
+    out = {"growth_events": sum(events.values(), []),
+           "device_peak_by_lanes": peaks}
+
+    def stats(method: str, lanes: Optional[int] = None) -> dict:
+        rows = metrics_rows(run_dirs[method])
+        return run_stats(rows, events[method], lanes or (
+            run_quality.start_capacity(int(rows[0]["num_alive"]))))
+
+    last = stretch_plan[-1]
+    if last.base is None:
+        return {**out, **stats(last.method)}
+    start = latest_checkpoint(run_dirs[REFINE_FROM] / "ckpts")
+    out.update(stats(last.method, peek_capacity(start)))
+    out["vanilla"] = stats(REFINE_FROM)
+    facts = {last.base: checkpoint_facts(run_dirs[REFINE_FROM]),
+             **{st.end: entries[st.end] for st in stretch_plan
+                if st.base is not None and "alive" in entries.get(st.end, {})}}
+    recipe = {st.end: st.recipe_step for st in stretch_plan}
+    out["refinement"] = {
+        "base_step": last.base,
+        **{f"{k}_by_step": {recipe[end]: f[k] for end, f in facts.items()}
+           for k in ("alive", "bands")},
+        **frozen_check(start, latest_checkpoint(
+            run_dirs[last.method] / "ckpts"))}
+    print(f"refinement: {out['refinement']}", flush=True)
+    return out
+
+
+def metrics_rows(run: Path) -> List[Dict]:
+    """The rows of the run's ``metrics.jsonl``."""
+    return [json.loads(l) for l in (Path(run) / "metrics.jsonl").open()
+            if l.strip()]
 
 
 def rings(per_view: List[float]) -> dict:
@@ -485,10 +777,10 @@ def downstream(cfg: Path, out: Path, dev: List[str], log: Path) -> dict:
     step), ``gs-render pose`` of the training views (their count) and
     ``gs-export offline-tsdf --meshing tetra`` (the mesh's vertices and
     faces), written under ``out``."""
-    from gstk_torch.train.checkpoint import latest_checkpoint
+    from gstk_torch.train.checkpoint import latest_checkpoint, peek_group
 
-    with np.load(latest_checkpoint(cfg.parent / "ckpts")) as ckpt:
-        stage = {"checkpoint_alive": int(ckpt[".scene/.alive"].sum())}
+    stage = {"checkpoint_alive": int(peek_group(latest_checkpoint(
+        cfg.parent / "ckpts"))["alive"].sum())}
     for name, module, argv in (
         ("gaussian_splat", "gstk_torch.scripts.export",
          ["gaussian-splat", "--output-dir", str(out / "export")]),
@@ -563,15 +855,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
-    method, extra, cfg_name = resolve_config(ap, args, extra)
+    method, extra, names, stretch_plan = resolve_config(ap, args, extra)
+    cfg_name = names[method]
     preflight.require_fresh(args.device, "quality_workflow")
     t_start = time.perf_counter()
     dev = [] if args.device is None else ["--device", args.device]
     out = args.out_dir
     out.mkdir(parents=True, exist_ok=True)
-    # this call's number, kept beside the run's checkpoints: a call cut
-    # short is picked up by the next one
-    runs = args.work_dir / runs_name(cfg_name, args.stretch)
+    # each run trains in its configuration's directory, where it keeps the
+    # record of its stretches; this call's number is kept beside the
+    # checkpoints of the configuration asked for: a call cut short is
+    # picked up by the next one
+    runs_of = {m: args.work_dir / runs_name(n, args.stretch)
+               for m, n in names.items()}
+    runs = runs_of[method]
     runs.mkdir(parents=True, exist_ok=True)
     calls_json = runs / "calls.json"
     calls = json.loads(calls_json.read_text()) if calls_json.exists() else []
@@ -594,64 +891,68 @@ def main(argv=None) -> dict:
 
     run_dir = run_quality.run_dir(data, runs, method)
     cfg = run_dir / "config.yml"
-    train = lambda a: _python_m("gstk_torch.scripts.train", a, log)
-    # the stretches earlier calls finished (their gs-eval written)
-    done_json = runs / "stretches.json"
-    done = {s["iters"]: s for s in (json.loads(done_json.read_text())
-                                    if done_json.exists() else [])}
-    stretches, evals = [], {}
-    for iters, flags in zip(stretch_ends(args.iters, args.stretch),
-                            stretch_flags(args, extra)):
-        eval_json = out / f"eval_{iters}.json"
-        if (iters in done and eval_json.exists()
-                and run_quality.checkpoint_step(run_dir) >= iters):
-            stretches.append(done[iters])
-            evals[iters] = json.loads(eval_json.read_text())
-            print(f"stretch to step {iters}: done in call "
-                  f"{done[iters]['call']}", flush=True)
-            continue
-        t0 = time.perf_counter()
-        rc = run_quality.main(
-            [str(data), str(runs), method, str(iters), *dev, "--",
-             *flags], train=train)
-        wall = time.perf_counter() - t0
+
+    def train(st: Stretch, argv: List[str]) -> dict:
+        """One gs-train call, its output appended to the log; what the log
+        says of it."""
+        size = log.stat().st_size
+        rc = run_quality.main(argv, train=lambda a: _python_m(
+            "gstk_torch.scripts.train", a, log))
         if rc:
             raise SystemExit(f"gs-train failed (rc {rc}); see {log}")
-        print(f"stretch to step {iters}: {wall:.1f} s", flush=True)
+        with open(log, "rb") as f:
+            f.seek(size)
+            text = f.read().decode("utf-8", "replace")
+        return {"trained_in": call, "config": names[st.method],
+                "growth_events": [(int(m.group(1)), m.group(2)) for m in (
+                    GROWTH.match(l) for l in text.splitlines()) if m],
+                "device_peak_mib": [float(x) for x in re.findall(
+                    r"Device peak ([0-9.]+) MiB", text)],
+                "device_peak_by_lanes": peak_by_lanes(text),
+                "train_done": re.findall(r"Training done in ([0-9.]+) min",
+                                         text)}
+
+    def score(st: Stretch, rd: Path) -> dict:
+        """gs-eval of the stretch's checkpoint (a fresh process), and for
+        the refinement the checkpoint's alive count and bands."""
+        eval_json = out / f"eval_{st.end}.json"
         t0 = time.perf_counter()
         if _python_m("gstk_torch.scripts.eval", [
-                "--load-config", str(cfg), "--output-path", str(eval_json),
-                "--skip-lpips", *dev]):
+                "--load-config", str(rd / "config.yml"), "--output-path",
+                str(eval_json), "--skip-lpips", *dev]):
             raise SystemExit("gs-eval failed")
-        evals[iters] = json.loads(eval_json.read_text())
-        stretches.append({"iters": iters, "wall_s": wall, "call": call,
-                          "flags": flags,
-                          "gs_eval_s": time.perf_counter() - t0})
-        done[iters] = stretches[-1]
-        done_json.write_text(json.dumps(list(done.values()), indent=1))
-    report["stretches"] = stretches
-    final = stretches[-1]["iters"]
-    shutil.copy(run_dir / "metrics.jsonl", out / "metrics.jsonl")
-    rows = [json.loads(l) for l in (run_dir / "metrics.jsonl").open()
-            if l.strip()]
+        return {"eval_json": str(eval_json.resolve()), "call": call,
+                "gs_eval_s": time.perf_counter() - t0,
+                **(checkpoint_facts(rd) if st.base is not None else {})}
 
-    # gs-eval against the trainer's own final eval (gs-train's eval_all
-    # after the last step), and the per-ring table
+    entries = run_plan(stretch_plan, data, runs_of, train, score, dev=dev)
+    report["stretches"] = stretches = [entries[st.end] for st in stretch_plan]
+    evals = {st.end: json.loads(Path(e["eval_json"]).read_text())
+             for st, e in zip(stretch_plan, stretches)}
+    final = stretch_plan[-1].end
+    shutil.copy(run_dir / "metrics.jsonl", out / "metrics.jsonl")
+    rows_of = {m: metrics_rows(run_quality.run_dir(data, r, m))
+               for m, r in runs_of.items()}
+    rows = rows_of[method]
+
+    # gs-eval against the trainer's own eval at each stretch's end
+    # (gs-train's eval_all after its last step), and the per-ring table
     report["evals"] = {}
-    for st in stretches:
-        iters = st["iters"]
-        trained = [r for r in rows if "eval_psnr" in r and r["step"] == iters]
+    for st, rec in zip(stretch_plan, stretches):
+        iters = st.end
+        trained = [r for r in rows_of[st.method]
+                   if "eval_psnr" in r and r["step"] == iters]
         res = evals[iters]["results"]
         entry = {"psnr": res["psnr"], "ssim": res["ssim"],
-                 "gs_eval_s": st["gs_eval_s"], "call": st["call"],
+                 "gs_eval_s": rec["gs_eval_s"], "call": rec["call"],
+                 "method": st.method, "recipe_step": st.recipe_step,
                  **rings(evals[iters]["per_image"]["psnr"])}
         if trained:
             entry["trainer_psnr"] = trained[-1]["eval_psnr"]
             entry["trainer_ssim"] = trained[-1]["eval_ssim"]
             entry["bit_for_bit"] = (res["psnr"] == trained[-1]["eval_psnr"]
                                     and res["ssim"] == trained[-1]["eval_ssim"])
-        ref = (published_curve(args.published,
-                               iters * step_scale(args.stretch), cfg_name)
+        ref = (published_curve(args.published, st.recipe_step, cfg_name)
                if args.published is not None else None)
         if ref is not None:
             entry["published_psnr"], entry["published_ssim"] = ref
@@ -661,7 +962,7 @@ def main(argv=None) -> dict:
                   flush=True)
         report["evals"][iters] = entry
     result_json = out / f"eval_{cfg_name}_torch.json"
-    shutil.copy(out / f"eval_{final}.json", result_json)
+    shutil.copy(stretches[-1]["eval_json"], result_json)
     if args.published is not None:
         report["published"] = published_diff(report["evals"][final],
                                              args.published, cfg_name)
@@ -681,23 +982,11 @@ def main(argv=None) -> dict:
                 args.published, cfg_name).get("downstream")
         print(f"downstream: {report['downstream']}", flush=True)
 
-    text = log.read_text()
-    events = [(int(m.group(1)), m.group(2)) for m in
-              (GROWTH.match(l) for l in text.splitlines()) if m]
-    report["growth_events"] = events
-    report["growth_counts"] = growth_counts(events)
-    report["device_peak_mib"] = [float(x) for x in re.findall(
-        r"Device peak ([0-9.]+) MiB", text)]
-    report["device_peak_by_lanes"] = peak_by_lanes(text)
-    report["train_done"] = re.findall(r"Training done in ([0-9.]+) min", text)
-    n_seed = rows[0]["num_alive"]
-    start_lanes = run_quality.start_capacity(int(n_seed))
-    report["iter_ms_by_lanes"] = iter_ms_by_lanes(
-        rows, lane_spans(events, start_lanes))
-    alive = [r for r in rows if "num_alive" in r]
-    report["alive_end"] = alive[-1]["num_alive"]
-    report["alive"] = alive_summary(rows)
-    report["num_intersects_max"] = max(r.get("num_intersects", 0) for r in rows)
+    report["device_peak_mib"] = [x for e in stretches
+                                 for x in e.get("device_peak_mib", [])]
+    report["train_done"] = [x for e in stretches
+                            for x in e.get("train_done", [])]
+    report.update(plan_stats(stretch_plan, entries, data, runs_of))
 
     # one counted stretch of 2 steps from the final checkpoint
     probe = args.work_dir / "probe"
@@ -706,7 +995,7 @@ def main(argv=None) -> dict:
         [*dev, *run_quality.recipe_flags(data, probe, method, final + 2),
          "--load-dir", str(run_dir / "ckpts"), "--steps-per-save", "0",
          "--steps-per-eval-image", "0", "--steps-per-eval-all-images", "0",
-         *stretches[-1]["flags"]], 2)
+         *stretch_plan[-1].flags], 2)
 
     # the ceiling analysis on the eval views, against the final gs-eval
     gts = args.work_dir / "gtS_eval.npz"

@@ -32,10 +32,19 @@ Usage:
 
 ``--iters 30000`` names a run ``_30k`` as the workflow does; on the ss 3
 capture it trains the 15k recipe to 15k and resumes it with
-:data:`~gstk_torch.tools.quality_workflow.SS3_CONTINUATION`. A call cut
-short is picked up by the same command: the run resumes from its newest
-checkpoint. With ``--published`` the report also sets the trainer's evals
-beside the reference's eval curve where its docs give one.
+:data:`~gstk_torch.tools.quality_workflow.SS3_CONTINUATION`. ``--method
+surface-gs --iters 17000`` is the workflow's refinement: the vanilla
+recipe to 15k with the same rounding, in the probe's own run directory of
+the vanilla configuration (``runs_240_fullmat``, trained first unless it
+is there), then surface-gs from that checkpoint in stretches of 1000
+steps, each scored rounded and exact (``scored`` in the report; the last
+also as ``eval_rounded`` / ``eval_exact``). Each run keeps the record of
+its stretches as the workflow's does
+(:func:`~gstk_torch.tools.quality_workflow.run_plan`). A call cut short
+is picked up by the same command: the run resumes from its newest
+checkpoint, and a stretch scored by an earlier call is not scored again.
+With ``--published`` the report also sets the trainer's evals beside the
+reference's eval curve where its docs give one.
 """
 
 from __future__ import annotations
@@ -152,7 +161,8 @@ def main(argv=None) -> dict:
     parts = [p for p in args.rounded.split(",") if p]
     if not set(parts) <= {"cameras", "tinv", "fullmat", "sh"}:
         ap.error(f"--rounded: unknown part in {parts}")
-    method, extra, cfg_name = qw.resolve_config(ap, args, extra)
+    method, extra, names, stretch_plan = qw.resolve_config(ap, args, extra)
+    cfg_name = names[method]
     dev = [] if args.device is None else ["--device", args.device]
     from gstk_torch.scripts import eval as eval_cli
     from gstk_torch.scripts.train import main as train_main
@@ -167,72 +177,86 @@ def main(argv=None) -> dict:
               "screen_shift": screen_shift(data, args.size, products)}
     print(f"rounded {products} vs exact: {report['screen_shift']}", flush=True)
 
+    # each run in its configuration's directory with this rounding, so the
+    # refinement resumes the probe's own rounded vanilla run
     name = "_".join(parts) or "exact"
-    runs = args.work_dir / f"{qw.runs_name(cfg_name, args.stretch)}_{name}"
-    run_dir = run_quality.run_dir(data, runs, method)
-    # one run_quality call to --iters, or for the ss 3 30k run the 15k
-    # recipe and then its continuation (quality_workflow.SS3_CONTINUATION)
-    ends = qw.stretch_ends(args.iters, args.stretch)
-    start = qw.continuation_start(args.capture, args.iters, args.stretch)
-    segments = ([(args.iters, extra)] if start is None else
-                [(start, extra), (args.iters, extra + qw.SS3_CONTINUATION)])
-    events, peaks = [], {}
+    runs_of = {m: args.work_dir / f"{qw.runs_name(n, args.stretch)}_{name}"
+               for m, n in names.items()}
+    last = stretch_plan[-1]
 
-    def train(argv):
-        trainer = train_main(argv)
-        events.extend(trainer.growth_events)
-        for lanes, mib in trainer.peak_by_lanes.items():
-            peaks[lanes] = max(mib, peaks.get(lanes, 0.0))
-        return 0 if trainer else 1
+    def train(st, argv):
+        got = {}
 
-    set_rounding(parts)
-    try:
-        for end, seg_flags in segments:
-            if run_quality.checkpoint_step(run_dir) >= end:
-                continue  # trained by an earlier call
-            rc = run_quality.main(
-                [str(data), str(runs), method, str(end), *dev, "--",
-                 *seg_flags], train=train)
-            if rc:
-                raise SystemExit(f"gs-train failed (rc {rc})")
-        cfg = run_dir / "config.yml"
-        args.out_dir.mkdir(parents=True, exist_ok=True)
+        def one(a):
+            trainer = train_main(a)
+            got.update(growth_events=trainer.growth_events,
+                       device_peak_by_lanes=trainer.peak_by_lanes)
+            return 0 if trainer else 1
+
+        rc = run_quality.main(argv, train=one)
+        if rc:
+            raise SystemExit(f"gs-train failed (rc {rc})")
+        return got
+
+    def score(st, rd):
+        """gs-eval of the stretch's checkpoint with the rounding and
+        exact, and for the refinement its alive count and bands."""
+        out = qw.checkpoint_facts(rd) if st.base is not None else {}
         for label, on in (("rounded", parts), ("exact", [])):
             set_rounding(on)
-            res = eval_cli.main(["--load-config", str(cfg), "--output-path",
-                                 str(args.out_dir / f"eval_{cfg_name}_{name}_{label}.json"),
-                                 "--skip-lpips", *dev])
+            suffix = "" if st is last else f"_{st.end}"
+            res = eval_cli.main([
+                "--load-config", str(rd / "config.yml"), "--output-path",
+                str(args.out_dir
+                    / f"eval_{cfg_name}_{name}_{label}{suffix}.json"),
+                "--skip-lpips", *dev])
             ev = {**{k: res["results"][k] for k in ("psnr", "ssim")},
                   **qw.rings(res["per_image"]["psnr"])}
             if args.published is not None:
-                ev["published"] = qw.published_diff(ev, args.published,
-                                                    cfg_name)
-                print(f"{label}: " + qw.published_line(ev["published"]),
-                      flush=True)
-            report[f"eval_{label}"] = ev
+                ev["published"] = qw.published_diff(
+                    ev, args.published, cfg_name, st.recipe_step)
+                print(f"step {st.end} {label}: "
+                      + qw.published_line(ev["published"]), flush=True)
+            out[label] = ev
+        set_rounding(parts)
+        return out
+
+    args.out_dir.mkdir(parents=True, exist_ok=True)
+    set_rounding(parts)
+    try:
+        # one gs-train call to --iters; for the ss 3 30k run the 15k recipe
+        # and then its continuation (quality_workflow.SS3_CONTINUATION); for
+        # the refinement the vanilla recipe and then each of its stretches,
+        # each scored
+        entries = qw.run_plan(
+            stretch_plan, data, runs_of, train, score,
+            scored=lambda st: st.base is not None or st is last, dev=dev)
     finally:
         set_rounding([])
-    rows = [json.loads(l) for l in (cfg.parent / "metrics.jsonl").open()]
+    report["scored"] = {st.end: {k: v for k, v in entries[st.end].items()
+                                 if k in ("alive", "bands", "rounded", "exact")}
+                        for st in stretch_plan
+                        if entries.get(st.end, {}).get("scored")}
+    report["eval_rounded"] = entries[last.end]["rounded"]
+    report["eval_exact"] = entries[last.end]["exact"]
+    rows = qw.metrics_rows(run_quality.run_dir(data, runs_of[method], method))
     report["trainer_evals"] = [(r["step"], r["eval_psnr"], r["eval_ssim"])
                                for r in rows if "eval_psnr" in r]
     if args.published is not None:
         # the in-loop evals log the step before a stretch's end
+        at = {st.end: st.recipe_step for st in stretch_plan
+              if st.method == method}
         report["published_curve"] = {
             end: [psnr, ref[0], psnr - ref[0]]
             for step, psnr, _ in report["trainer_evals"]
-            for end in [step if step in ends else step + 1] if end in ends
-            for ref in [qw.published_curve(
-                args.published, end * qw.step_scale(args.stretch), cfg_name)]
+            for end in [step if step in at else step + 1] if end in at
+            for ref in [qw.published_curve(args.published, at[end],
+                                           cfg_name)]
             if ref is not None}
-    report["alive_end"] = [r["num_alive"] for r in rows if "num_alive" in r][-1]
-    report["alive"] = qw.alive_summary(rows)
-    shutil.copy(cfg.parent / "metrics.jsonl",
+    shutil.copy(run_quality.run_dir(data, runs_of[method], method)
+                / "metrics.jsonl",
                 args.out_dir / f"metrics_{cfg_name}_{name}.jsonl")
-    report["growth_events"] = events
-    report["growth_counts"] = qw.growth_counts(events)
-    report["device_peak_by_lanes"] = peaks
-    report["iter_ms_by_lanes"] = qw.iter_ms_by_lanes(rows, qw.lane_spans(
-        events, run_quality.start_capacity(int(rows[0]["num_alive"]))))
+    report.update(qw.plan_stats(stretch_plan, entries, data, runs_of))
     report["wall_s"] = time.perf_counter() - t0
     (args.out_dir / f"probe_{cfg_name}_{name}.json").write_text(
         json.dumps(report, indent=1))

@@ -88,6 +88,19 @@ def _moment_key(which: str, group: str, adam: str = ".adam") -> str:
     return f"{adam}/.{which}/['{group}']"
 
 
+def peek_group(path, group: str = "means") -> Dict[str, np.ndarray]:
+    """One parameter group of a checkpoint as numpy, without the rest of
+    the state: the alive mask (``alive``), the group's values (``value``),
+    its Adam moments (``mu``, ``nu``) and the Adam step count
+    (``count``)."""
+    with np.load(path) as data:
+        return {"alive": data[".scene/.alive"],
+                "value": data[f".scene/.{group}"],
+                "mu": data[_moment_key("mu", group)],
+                "nu": data[_moment_key("nu", group)],
+                "count": int(data[".adam/.count"])}
+
+
 _CAM_GROUP = "camera_opt"
 
 

@@ -553,3 +553,42 @@ def test_tools_import_neither_jax_nor_the_reference(tmp_path):
     subprocess.run([sys.executable, "-c", code], check=True, cwd=tmp_path,
                    capture_output=True,
                    env={**os.environ, "PYTHONPATH": str(REPO)})
+
+
+def test_kernel_device_ms_keeps_names_after_a_lost_session(monkeypatch):
+    """A profiler session that records nothing is repeated; the session
+    that records the launches still returns the kernels' names (a lost
+    session once dropped them, and ``bench_gather`` failed on the card)."""
+    import torch.profiler
+
+    from gstk_torch import tools
+
+    class Event:
+        device_type = torch.autograd.DeviceType.CUDA
+        key, self_device_time_total, count = "gather_kernel<float>", 30.0, 3
+
+    sessions = []
+
+    class Profile:
+        def __init__(self, activities):
+            sessions.append(self)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [] if len(sessions) < 3 else [Event()]
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    out = tools.kernel_device_ms(lambda: None, "gather_kernel", 3, names=True)
+    assert len(sessions) == 3
+    assert out["names"] == {"gather_kernel<float>": 3}
+    assert out["ms"] == 0.01 and out["profiler_launches"] == 3
+    sessions.clear()
+    monkeypatch.setattr(Profile, "key_averages", lambda self: [])
+    with pytest.raises(RuntimeError, match="no launch of gather_kernel"):
+        tools.kernel_device_ms(lambda: None, "gather_kernel", 3, names=True)

@@ -249,13 +249,16 @@ def test_continuation_starts_at_the_recipes_step_15000(
     rehearsal = stretch < quality_workflow.STRETCH
     assert quality_workflow.runs_name(name, stretch) == (
         f"runs_{name}" + (f"_stretch{stretch}" if rehearsal else ""))
-    args = type("A", (), {"capture": capture, "iters": iters,
-                          "stretch": stretch})()
-    flags = quality_workflow.stretch_flags(args, ["--x"])
+    stretches = quality_workflow.plan(capture, "gaussian-splatting", iters,
+                                      stretch, ["--x"])
     ends = quality_workflow.stretch_ends(iters, stretch)
-    assert flags == [["--x"] + (quality_workflow.SS3_CONTINUATION
-                                if start is not None and end > start else [])
-                     for end in ends]
+    assert [st.end for st in stretches] == ends
+    assert [st.recipe_step for st in stretches] == [
+        end * quality_workflow.step_scale(stretch) for end in ends]
+    assert [st.flags for st in stretches] == [
+        ["--x"] + (quality_workflow.SS3_CONTINUATION
+                   if start is not None and end > start else [])
+        for end in ends]
 
 
 def test_capture_reused_only_with_its_arguments(tmp_path, monkeypatch):
@@ -487,9 +490,9 @@ def test_cut_workflow_call_is_picked_up(tmp_path, monkeypatch):
     """A 30k-configuration rehearsal (four stretches of 10 steps) cut
     after its third gs-train, before that stretch's gs-eval, then run
     again by the same command: the second call keeps the first's capture
-    and two gs-evals, resumes the run, appends to ``train.log``, says
-    which call ran each stretch, and reports what one uninterrupted call
-    reports."""
+    and two gs-evals, resumes the run, appends to ``train.log``, trains
+    no stretch twice, says which call finished each stretch, and reports
+    what one uninterrupted call reports."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     whole = _workflow(tmp_path / "whole")
     real = quality_workflow._python_m
@@ -518,9 +521,9 @@ def test_cut_workflow_call_is_picked_up(tmp_path, monkeypatch):
     assert len(again["calls"]) == 2
     log = (work / "report" / "train.log").read_text()
     assert "quality_workflow call 1" in log and "quality_workflow call 2" in log
-    # gs-train resumed stretches 2 and 3 in the first call, 3 and 4 in
-    # the second
-    assert log.count("Resumed from") == 4
+    # gs-train resumed stretches 2 and 3 in the first call and 4 in the
+    # second, which found stretch 3's checkpoint and only scored it
+    assert log.count("Resumed from") == 3
     assert all(e["bit_for_bit"] for e in again["evals"].values())
     assert [e["published_psnr"] for e in again["evals"].values()] == [
         22.809, 22.785, 22.894, 22.873]
