@@ -3539,12 +3539,12 @@ def gauss_train_run(io: Path, rank: int, counted, report) -> None:
         gaussian_sharding.gather_train_state = whole
     grew = [m for _, m in trainer.growth_events
             if m.startswith("Growing Gaussian capacity")]
-    refines = PROFILER.counts.get("refinement", 0)
+    refines = PROFILER.counts.get("refine", 0)
     assert trainer.gauss_mesh is not None and not calls, len(calls)
     assert refines >= 2 and grew, (refines, trainer.growth_events)
     report["gauss_train"] = {
         "whole_state_gathers": len(calls), "refines": refines, "growths": grew,
-        "refine_ms": PROFILER.totals.get("refinement", 0.0) / refines * 1e3,
+        "refine_ms": PROFILER.totals.get("refine", 0.0) / refines * 1e3,
         "grow_ms": PROFILER.totals.get("grow_capacity", 0.0) * 1e3,
         "save_ms": PROFILER.totals.get("save_checkpoint", 0.0) * 1e3,
         "capacity": trainer.state.scene.capacity * 2,

@@ -28,6 +28,7 @@ from gstk_torch.ops.rasterize import RasterizeConfig, rasterize
 from gstk_torch.ops.sh import spherical_harmonics
 from gstk_torch.utils import losses
 from gstk_torch.utils.math import normalize
+from gstk_torch.utils.profiler import timer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,48 +91,49 @@ def splat_inputs(
     :func:`gstk_torch.ops.rasterize.rasterize` (``colors`` holds RGB plus
     depth as a 4th channel; dead lanes, and lanes outside ``crop_box`` when
     one is given, have radius, tile count and opacity 0)."""
-    means = scene.means
-    quats = normalize(scene.quats)
-    scales = torch.exp(scene.scales)
-    viewmat, fullmat = camera_matrices(camera, img_height, img_width)
+    with timer("project"):
+        means = scene.means
+        quats = normalize(scene.quats)
+        scales = torch.exp(scene.scales)
+        viewmat, fullmat = camera_matrices(camera, img_height, img_width)
 
-    proj = project_gaussians(
-        means, scales, 1.0, quats, viewmat, fullmat,
-        camera.fx, camera.fy, camera.cx, camera.cy,
-        img_height, img_width, block_width,
-    )
-    # dead lanes never enter binning or compositing; a crop box filters
-    # renders the same way
-    alive = scene.alive
-    if crop_box is not None:
-        alive = alive & crop_box.within(means.detach())
-
-    if sh_degree > 0 or config.sh_degree > 0:
-        coeffs = torch.cat(
-            [scene.features_dc[:, None, :], scene.features_rest], dim=1
+        proj = project_gaussians(
+            means, scales, 1.0, quats, viewmat, fullmat,
+            camera.fx, camera.fy, camera.cx, camera.cy,
+            img_height, img_width, block_width,
         )
-        viewdirs = normalize(means.detach() - camera.position.detach()[None, :])
-        rgbs = spherical_harmonics(int(sh_degree), viewdirs, coeffs)
-        rgbs = rgbs + 0.5
-        rgbs = torch.maximum(rgbs, torch.zeros_like(rgbs))
-    else:
-        rgbs = torch.sigmoid(scene.features_dc)
+        # dead lanes never enter binning or compositing; a crop box filters
+        # renders the same way
+        alive = scene.alive
+        if crop_box is not None:
+            alive = alive & crop_box.within(means.detach())
 
-    opac = torch.sigmoid(scene.opacities)[:, 0]
-    if config.rasterize_mode == "antialiased":
-        opac = opac * proj.compensation
-    elif config.rasterize_mode != "classic":
-        raise ValueError(f"Unknown rasterize_mode {config.rasterize_mode}")
-    return {
-        "xys": proj.xys,
-        "depths": proj.depths,
-        "radii": torch.where(alive, proj.radii, 0),
-        "conics": proj.conics,
-        "num_tiles_hit": torch.where(alive, proj.num_tiles_hit, 0),
-        # one fused pass: RGB + depth as a 4th channel
-        "colors": torch.cat([rgbs, proj.depths[:, None]], dim=-1),
-        "opacities": torch.where(alive, opac, 0.0),
-    }
+        if sh_degree > 0 or config.sh_degree > 0:
+            coeffs = torch.cat(
+                [scene.features_dc[:, None, :], scene.features_rest], dim=1
+            )
+            viewdirs = normalize(means.detach() - camera.position.detach()[None, :])
+            rgbs = spherical_harmonics(int(sh_degree), viewdirs, coeffs)
+            rgbs = rgbs + 0.5
+            rgbs = torch.maximum(rgbs, torch.zeros_like(rgbs))
+        else:
+            rgbs = torch.sigmoid(scene.features_dc)
+
+        opac = torch.sigmoid(scene.opacities)[:, 0]
+        if config.rasterize_mode == "antialiased":
+            opac = opac * proj.compensation
+        elif config.rasterize_mode != "classic":
+            raise ValueError(f"Unknown rasterize_mode {config.rasterize_mode}")
+        return {
+            "xys": proj.xys,
+            "depths": proj.depths,
+            "radii": torch.where(alive, proj.radii, 0),
+            "conics": proj.conics,
+            "num_tiles_hit": torch.where(alive, proj.num_tiles_hit, 0),
+            # one fused pass: RGB + depth as a 4th channel
+            "colors": torch.cat([rgbs, proj.depths[:, None]], dim=-1),
+            "opacities": torch.where(alive, opac, 0.0),
+        }
 
 
 def render_splats(

@@ -38,6 +38,7 @@ from gstk_torch.ops.segment_kernel import (
     segment_sum_sorted,
     segment_sum_sorted_plain,
 )
+from gstk_torch.utils.profiler import timer
 
 FORWARD_ONLY_MESSAGE = (
     "RasterizeConfig.forward_only=True skips the expansion permutation the "
@@ -149,39 +150,40 @@ def rasterize(
     and background."""
     if config.backend not in BACKENDS:
         raise ValueError(f"RasterizeConfig.backend {config.backend!r} not in {BACKENDS}")
-    bw = config.block_width
-    tiles_x = (img_width + bw - 1) // bw
-    bands = band_rows(img_height, img_width, config)
+    with timer("raster"):
+        bw = config.block_width
+        tiles_x = (img_width + bw - 1) // bw
+        bands = band_rows(img_height, img_width, config)
 
-    ext, ext_alive = footprints(radii, conics, opacities, config)
+        ext, ext_alive = footprints(radii, conics, opacities, config)
 
-    band_imgs, band_ts, band_isects = [], [], []
-    for y0, rows_b, band_h in bands:
-        if len(bands) == 1:
-            xys_b = xys
-        else:
-            shift = torch.tensor([0.0, float(y0)], device=xys.device)
-            xys_b = xys - shift
-        counts_b = tile_counts(xys_b, ext, ext_alive, (tiles_x, rows_b), bw)
-        img_b, t_b, ni = _rasterize_band(
-            xys_b, depths, ext, conics, counts_b, colors, opacities,
-            band_h, img_width, config,
-        )
-        band_imgs.append(img_b)
-        band_ts.append(t_b)
-        band_isects.append(ni)
+        band_imgs, band_ts, band_isects = [], [], []
+        for y0, rows_b, band_h in bands:
+            if len(bands) == 1:
+                xys_b = xys
+            else:
+                shift = torch.tensor([0.0, float(y0)], device=xys.device)
+                xys_b = xys - shift
+            counts_b = tile_counts(xys_b, ext, ext_alive, (tiles_x, rows_b), bw)
+            img_b, t_b, ni = _rasterize_band(
+                xys_b, depths, ext, conics, counts_b, colors, opacities,
+                band_h, img_width, config,
+            )
+            band_imgs.append(img_b)
+            band_ts.append(t_b)
+            band_isects.append(ni)
 
-    img = torch.cat(band_imgs, dim=0)
-    final_t_img = torch.cat(band_ts, dim=0)
-    if background is not None:
-        img = img + final_t_img[..., None] * background
-    alpha = 1.0 - final_t_img
-    if return_info:
-        # max over bands: the growth signal for the static capacity
-        per_band = torch.stack(band_isects)
-        return img, alpha, {"num_intersects": per_band.max(),
-                            "band_intersects": per_band}
-    return img, alpha
+        img = torch.cat(band_imgs, dim=0)
+        final_t_img = torch.cat(band_ts, dim=0)
+        if background is not None:
+            img = img + final_t_img[..., None] * background
+        alpha = 1.0 - final_t_img
+        if return_info:
+            # max over bands: the growth signal for the static capacity
+            per_band = torch.stack(band_isects)
+            return img, alpha, {"num_intersects": per_band.max(),
+                                "band_intersects": per_band}
+        return img, alpha
 
 
 class _CompositeTiles(torch.autograd.Function):

@@ -20,6 +20,7 @@ from gstk_torch.core.cameras import Camera
 from gstk_torch.models.vanilla import VanillaConfig, render_scene
 from gstk_torch.ops.rasterize import RasterizeConfig
 from gstk_torch.train.checkpoint import latest_checkpoint, load_scene, peek_meta
+from gstk_torch.utils.profiler import timer
 
 
 class Renderer:
@@ -111,9 +112,10 @@ class Renderer:
         ``crop_box`` is an optional ``SceneBox`` / ``OrientedBox`` filtering
         the Gaussians."""
         out = self.render(c2w, fx, fy, cx, cy, height, width, crop_box)
-        return {
-            "rgb": out["rgb"].cpu().numpy(),
-            "depth": out["depth"].cpu().numpy(),
-            "accumulation": out["alpha"].cpu().numpy(),
-            "num_intersects": int(out["num_intersects"]),
-        }
+        with timer("copy_out"):
+            return {
+                "rgb": out["rgb"].cpu().numpy(),
+                "depth": out["depth"].cpu().numpy(),
+                "accumulation": out["alpha"].cpu().numpy(),
+                "num_intersects": int(out["num_intersects"]),
+            }

@@ -62,6 +62,7 @@ from gstk_torch.parallel.mesh import Mesh, get_mesh
 from gstk_torch.train.optim import AdamState, OptimizerConfig, adam_step, init_adam
 from gstk_torch.train.strategy import RefineState, init_refine_state
 from gstk_torch.utils.losses import f32_convolutions
+from gstk_torch.utils.profiler import timer
 
 
 @dataclasses.dataclass
@@ -266,30 +267,32 @@ def make_train_step(
                 scene, cam, img_height, img_width, mesh=gauss_axis, **render_kw)
             if reads_scene:
                 loss_scene = gaussian_sharding.loss_scene(scene, gauss_axis)
-        ld = rgb_loss(out["rgb"], gt, loss_scene, model_cfg, mask,
-                      apply_scale_reg)
-        depth_terms = {}
-        if is_depth_model:
-            depth_terms = depth_loss_terms(
-                model_cfg, state.step, out["depth"], depth, gt, loss_scene,
-                generator, mask=mask, mono_scale=mono_scale,
-                mono_shift=mono_shift, camera=cam,
-            )
-            ld.update(depth_terms)
-        loss = sum(ld.values())
+        with timer("loss"):
+            ld = rgb_loss(out["rgb"], gt, loss_scene, model_cfg, mask,
+                          apply_scale_reg)
+            depth_terms = {}
+            if is_depth_model:
+                depth_terms = depth_loss_terms(
+                    model_cfg, state.step, out["depth"], depth, gt,
+                    loss_scene, generator, mask=mask, mono_scale=mono_scale,
+                    mono_shift=mono_shift, camera=cam,
+                )
+                ld.update(depth_terms)
+            loss = sum(ld.values())
+            if use_cam_opt:
+                reg = pose_regularizer(cam_adj, camera_opt)
+                ld["camera_opt_regularizer"] = reg
+                if gauss_axis is None:
+                    loss = loss + reg
         cam_rep = None
-        if use_cam_opt:
-            reg = pose_regularizer(cam_adj, camera_opt)
-            ld["camera_opt_regularizer"] = reg
-            if gauss_axis is None:
-                loss = loss + reg
-            else:
+        with timer("backward"):
+            if use_cam_opt and gauss_axis is not None:
                 # every rank holds the whole regulariser but only its lanes'
                 # share of the projection's camera gradient: the regulariser's
                 # gradient is kept apart and added after the shares are summed
                 cam_rep = torch.autograd.grad(reg, cam_adj)[0]
-        with f32_convolutions():  # SSIM's convolution backward, in f32 too
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+            with f32_convolutions():  # SSIM's convolution backward, in f32 too
+                grads = torch.autograd.grad(loss, wrt, allow_unused=True)
         if cam_rep is not None:
             loss = loss + reg  # logged whole, as without the Gaussian axis
         grads = [torch.zeros_like(x) if g is None else g
@@ -343,25 +346,28 @@ def make_train_step(
                    mono_scale: Optional[torch.Tensor] = None,
                    mono_shift: Optional[torch.Tensor] = None,
                    camera_index=None):
-        num_alive = state.scene.num_alive
-        grads, g_xys, cam_grad, cam_rep, radii, metrics = grads_once(
-            state, camera, gt_image, generator, mask, depth, mono_scale,
-            mono_shift, camera_index,
-        )
-        metrics["num_alive"] = num_alive
-        grads, cam_grad, g_norm, visible, radii, metrics = synchronize(
-            grads, cam_grad, cam_rep, _lane_norm(g_xys), radii > 0,
-            radii, metrics)
-        refine = RefineState(
-            xys_grad_norm=state.refine.xys_grad_norm + g_norm,
-            vis_counts=state.refine.vis_counts + visible.to(torch.float32),
-            max_2dsize=torch.maximum(
-                state.refine.max_2dsize,
-                radii.to(torch.float32) / max_img_size,
-            ),
-        )
-        state = apply(state, grads, cam_grad, refine)
-        return state, camera_metrics(state, metrics)
+        with timer("step"):
+            num_alive = state.scene.num_alive
+            grads, g_xys, cam_grad, cam_rep, radii, metrics = grads_once(
+                state, camera, gt_image, generator, mask, depth, mono_scale,
+                mono_shift, camera_index,
+            )
+            metrics["num_alive"] = num_alive
+            with timer("update"):
+                grads, cam_grad, g_norm, visible, radii, metrics = synchronize(
+                    grads, cam_grad, cam_rep, _lane_norm(g_xys), radii > 0,
+                    radii, metrics)
+                refine = RefineState(
+                    xys_grad_norm=state.refine.xys_grad_norm + g_norm,
+                    vis_counts=state.refine.vis_counts
+                    + visible.to(torch.float32),
+                    max_2dsize=torch.maximum(
+                        state.refine.max_2dsize,
+                        radii.to(torch.float32) / max_img_size,
+                    ),
+                )
+                state = apply(state, grads, cam_grad, refine)
+            return state, camera_metrics(state, metrics)
 
     if micro_batch == 1:
         return train_step
@@ -374,44 +380,47 @@ def make_train_step(
                          mono_scales: Optional[torch.Tensor] = None,
                          mono_shifts: Optional[torch.Tensor] = None,
                          camera_indices=None):
-        num_alive = state.scene.num_alive
-        capacity = state.scene.capacity
-        zeros = lambda dtype: torch.zeros(capacity, dtype=dtype,
-                                          device=state.scene.means.device)
-        gsum, csum, rsum, ys = None, None, None, []
-        gx_sum = zeros(torch.float32)
-        vis_sum, rad_max = zeros(torch.int32), zeros(torch.int32)
-        at = lambda xs, i: None if xs is None else xs[i]
-        for i in range(micro_batch):
-            grads, g_xys, cam_grad, cam_rep, radii, m = grads_once(
-                state, _camera_at(cameras, i), gt_images[i], generator,
-                at(masks, i), at(depths, i), at(mono_scales, i),
-                at(mono_shifts, i), at(camera_indices, i),
-            )
-            gsum = grads if gsum is None else {k: gsum[k] + v
-                                               for k, v in grads.items()}
-            if use_cam_opt:
-                csum = cam_grad if csum is None else csum + cam_grad
-            if cam_rep is not None:
-                rsum = cam_rep if rsum is None else rsum + cam_rep
-            gx_sum = gx_sum + _lane_norm(g_xys)
-            vis_sum = vis_sum + (radii > 0).to(torch.int32)
-            rad_max = torch.maximum(rad_max, radii.to(torch.int32))
-            ys.append(m)
-        stacked = {k: torch.stack([m[k] for m in ys]) for k in ys[0]}
-        metrics = {k: v.mean() for k, v in stacked.items()
-                   if k != "num_intersects"}
-        metrics["num_alive"] = num_alive
-        metrics["num_intersects"] = stacked["num_intersects"].max()
-        gsum, csum, gx_sum, vis_sum, rad_max, metrics = synchronize(
-            gsum, csum, rsum, gx_sum, vis_sum, rad_max, metrics)
-        refine = RefineState(
-            xys_grad_norm=state.refine.xys_grad_norm + gx_sum,
-            vis_counts=state.refine.vis_counts + vis_sum.to(torch.float32),
-            max_2dsize=torch.maximum(state.refine.max_2dsize,
-                                     rad_max.to(torch.float32) / max_img_size),
-        )
-        state = apply(state, gsum, csum, refine)
-        return state, camera_metrics(state, metrics)
+        with timer("step"):
+            num_alive = state.scene.num_alive
+            capacity = state.scene.capacity
+            zeros = lambda dtype: torch.zeros(capacity, dtype=dtype,
+                                              device=state.scene.means.device)
+            gsum, csum, rsum, ys = None, None, None, []
+            gx_sum = zeros(torch.float32)
+            vis_sum, rad_max = zeros(torch.int32), zeros(torch.int32)
+            at = lambda xs, i: None if xs is None else xs[i]
+            for i in range(micro_batch):
+                grads, g_xys, cam_grad, cam_rep, radii, m = grads_once(
+                    state, _camera_at(cameras, i), gt_images[i], generator,
+                    at(masks, i), at(depths, i), at(mono_scales, i),
+                    at(mono_shifts, i), at(camera_indices, i),
+                )
+                gsum = grads if gsum is None else {k: gsum[k] + v
+                                                   for k, v in grads.items()}
+                if use_cam_opt:
+                    csum = cam_grad if csum is None else csum + cam_grad
+                if cam_rep is not None:
+                    rsum = cam_rep if rsum is None else rsum + cam_rep
+                gx_sum = gx_sum + _lane_norm(g_xys)
+                vis_sum = vis_sum + (radii > 0).to(torch.int32)
+                rad_max = torch.maximum(rad_max, radii.to(torch.int32))
+                ys.append(m)
+            stacked = {k: torch.stack([m[k] for m in ys]) for k in ys[0]}
+            metrics = {k: v.mean() for k, v in stacked.items()
+                       if k != "num_intersects"}
+            metrics["num_alive"] = num_alive
+            metrics["num_intersects"] = stacked["num_intersects"].max()
+            with timer("update"):
+                gsum, csum, gx_sum, vis_sum, rad_max, metrics = synchronize(
+                    gsum, csum, rsum, gx_sum, vis_sum, rad_max, metrics)
+                refine = RefineState(
+                    xys_grad_norm=state.refine.xys_grad_norm + gx_sum,
+                    vis_counts=state.refine.vis_counts + vis_sum.to(torch.float32),
+                    max_2dsize=torch.maximum(
+                        state.refine.max_2dsize,
+                        rad_max.to(torch.float32) / max_img_size),
+                )
+                state = apply(state, gsum, csum, refine)
+            return state, camera_metrics(state, metrics)
 
     return micro_train_step

@@ -13,7 +13,7 @@ Responsibilities, as in gstk_tpu:
   * every ``refine_every`` steps run :func:`gstk_torch.train.strategy.refine`;
   * grow the Gaussian capacity, the intersection capacity and the raster
     bands between steps when the fetched counts cross gstk_tpu's thresholds;
-  * eval cadence, checkpoints, writer logging, host-clock profiler;
+  * eval cadence, checkpoints, writer logging, layer spans;
   * with ``vis="viewer"``, a live viewer (:func:`make_viewer`) started at
     setup and given a snapshot of the scene at every log step.
 
@@ -563,12 +563,13 @@ class Trainer:
         """Refine the state at its step, in place (each rank its own lanes
         under Gaussian sharding)."""
         s = self.state
-        _, _, s.refine, _ = refine(
-            s.scene, s.adam, s.refine, s.step, self.config.model,
-            self.datamanager.num_train_global,
-            max(self.datamanager.image_size), generator=self.generator,
-            mesh=self.gauss_mesh,
-        )
+        with timer("refine"):
+            _, _, s.refine, _ = refine(
+                s.scene, s.adam, s.refine, s.step, self.config.model,
+                self.datamanager.num_train_global,
+                max(self.datamanager.image_size), generator=self.generator,
+                mesh=self.gauss_mesh,
+            )
 
     # -- capacity management ----------------------------------------------
     def _drain_isect_window(self, metrics_host: Dict) -> Dict:
@@ -684,16 +685,14 @@ class Trainer:
             step_fn = self._step_fn(h, w, self._sh_degree(step), scale_reg)
             cam_idx, frame = self.datamanager.next_train()
             inputs = self._train_inputs(cam_idx, frame, d)
-            with timer("train_iteration"):
-                self.state, metrics = step_fn(
-                    self.state, *inputs[:2], self.step_generator, *inputs[2:],
-                    camera_index=self._camera_index(cam_idx),
-                )
+            self.state, metrics = step_fn(
+                self.state, *inputs[:2], self.step_generator, *inputs[2:],
+                camera_index=self._camera_index(cam_idx),
+            )
             self._isect_window.append(metrics["num_intersects"])
 
             if (step + 1) % cfg.model.refine_every == 0:
-                with timer("refinement"):
-                    self._refine()
+                self._refine()
 
             if step % cfg.log_every == 0 or step == cfg.max_num_iterations - 1:
                 # the window's amortized wall time per step: only this
