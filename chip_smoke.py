@@ -56,6 +56,17 @@ line:
      K2 / K4 / ``pack_records`` timings, with one ``torch.sum`` over the
      values K4 covers (a floor for its bytes); ``refine`` on this state
      (capacity 104*1024, 100k alive) at a densifying step, synchronized;
+     the launch counters here and in the later phases that reset them
+     count the projection kernels PF and PB too (phase 6 counts PF);
+  10b. the projection kernels PF and PB (``ops/project_cuda.py``) at the
+     30k operating point's lanes (2^21, 1.76M alive, SH degree 3, drawn on
+     the card), 800x800, antialiased, against ``splat_inputs_plain`` on the
+     same inputs: float outputs rtol 1e-5 / atol 1e-6, radii and tile
+     counts equal on all but 0.001% of lanes and never more than 1 apart,
+     the six gradients and the view matrices' against the plain path in
+     f64 as ``tests/test_torch_gpu.py`` judges them, PF and PB once each;
+     both timed beside the plain forward and its backward alone, their
+     bytes at the HBM's rate the bound in the ``kernels`` line;
   11. trainer path: the port's synthetic-dataset generator writes 24 views
      at 800x800 of its 500-point object on the card, the dataset's seed
      cloud is rewritten with 100k points drawn around the object's, and
@@ -288,8 +299,9 @@ line:
      (g) ``quality_workflow`` on CUDA refused (exit 3) without a preflight
      stamp; then, every phase passed, the preflight stamp is written and
      ``preflight check`` exits 0;
-then one ``kernels`` JSON line (K1-K4: launches per train step, times,
-bounds, phase 14's launches under ``launches_methods``, phase 15's
+then one ``kernels`` JSON line (K1-K4, PF and PB: launches per train step,
+times, bounds, phase 6's render launches under ``launches_render``, phase
+14's launches under ``launches_methods``, phase 15's
 under ``launches_data_viewer``, phase 16's under
 ``launches_process_data``, phase 17's under ``launches_parallel``, per
 rank and path, phase 18's under ``launches_quality`` and phase 19's, a
@@ -297,7 +309,8 @@ step of each configuration and each probe run, under
 ``launches_configs``, phase 20's 4K frame under ``launches_4k`` and its
 continuation and 30k runs under ``launches_30k``, phase 21's under
 ``launches_tools``; P1-P3:
-launches in phase 12's run of the probes; phase 11's numbers under
+launches in phase 12's run of the probes; phase 10b's errors under
+``projection``; phase 11's numbers under
 ``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
 view and a frame included, under ``backend``, phase 14's under
 ``methods``, phase 15's under ``data_viewer``, phase 16's under
@@ -368,6 +381,8 @@ from gstk_torch.ops.raster_cuda import (
     pack_records,
     resident_ctas,
 )
+from gstk_torch.ops import project_cuda
+from gstk_torch.ops.project_cuda import project_bwd, project_fwd
 from gstk_torch.ops.rasterize import RasterizeConfig, _tiles_to_image, rasterize
 from gstk_torch.ops.segment_kernel import (
     segment_broadcast,
@@ -495,6 +510,9 @@ SEED_POINTS, SEED_JITTER = N_POINTS, 0.05
 TRAIN_ITERS = 400
 REFINE_TIMES = 5  # synchronized refine calls timed, median reported
 REFINE_STEP = 1000  # phase 10's refine: past warmup, densifying
+# phase 10(b): the projection kernels at the 30k operating point's lanes
+# (2^21, about 1.76M alive), SH degree 3, on phase 3's camera
+PROJ_LANES, PROJ_ALIVE = 1 << 21, 1_760_000
 # phase 13: gs-eval against the trainer's eval (PSNR rtol, SSIM atol)
 EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-4
 LPIPS_CROP = 128  # LPIPS on the card against the CPU on this square of a pair
@@ -753,8 +771,8 @@ def run(ckpt_dir: str) -> int:
         renderer.get_output_from_pose(*args(0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    composite_tiles_fwd.launches = 0
-    segment_broadcast.launches = 0
+    for f in (composite_tiles_fwd, segment_broadcast, project_fwd):
+        f.launches = 0
     outs, ms = [], []
     for i in range(REQUESTS):
         t0 = time.perf_counter()
@@ -762,8 +780,8 @@ def run(ckpt_dir: str) -> int:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-    launches = {"composite_tiles_fwd": composite_tiles_fwd.launches,
-                "segment_broadcast": segment_broadcast.launches}
+    launches = {f.__name__: f.launches
+                for f in (composite_tiles_fwd, segment_broadcast, project_fwd)}
     peak = torch.cuda.max_memory_allocated()
     print(f"request ms: median {statistics.median(ms):.3f}, min {min(ms):.3f} "
           f"(host clock, synchronized; {REQUESTS} requests after 2 warm-ups)")
@@ -945,7 +963,7 @@ def run(ckpt_dir: str) -> int:
     before = train_state_to_numpy(state)
     torch.cuda.synchronize()
     counters = (composite_tiles_fwd, composite_tiles_bwd, segment_broadcast,
-                segment_sum_sorted)
+                segment_sum_sorted, project_fwd, project_bwd)
     for f in counters:
         f.launches = 0
     state, metrics = step_fn(state, camera, gt)
@@ -1017,6 +1035,7 @@ def run(ckpt_dir: str) -> int:
                                              ch, t_pairs, t_kept_pairs)
     k4_bytes = rows * covered * 4 + n_seg * 4 + rows * n_seg * 4
     k4_ops = rows * covered
+    proj = projection_phase(dev, camera, iters)
 
     trainer_numbers = trainer_phase(Path(ckpt_dir), counters)
     trainer_numbers["bench_refine_ms"] = statistics.median(bench_refine_ms)
@@ -1054,9 +1073,20 @@ def run(ckpt_dir: str) -> int:
         ("segment_sum_sorted", k4, k4_bytes, k4_ops,
          "gstk_torch/csrc/segment_sum.cu",
          "gstk_tpu/ops/segment_kernel.py:227", k4_err),
+        # no TPU kernel: XLA fuses gstk_tpu's projection and SH
+        ("project_fwd", proj["fwd"], proj["fwd_bytes"], None,
+         "gstk_torch/csrc/project_fwd.cu",
+         "gstk_tpu/models/vanilla.py::splat_inputs (XLA-fused)",
+         proj["fwd_err"]),
+        ("project_bwd", proj["bwd"], proj["bwd_bytes"], None,
+         "gstk_torch/csrc/project_bwd.cu",
+         "gstk_tpu/models/vanilla.py::splat_inputs (jax.grad, XLA-fused)",
+         proj["bwd_err"]),
     ):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_FLOP_PER_S * 1e3
+        # the projection kernels' operations are not counted: a lane's few
+        # hundred flops take far less than its ~500 B at the HBM's rate
+        ops_ms = 0.0 if ops is None else ops / F32_FLOP_PER_S * 1e3
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": step_launches[name],
@@ -1073,30 +1103,33 @@ def run(ckpt_dir: str) -> int:
             entry["library_axis1_ms"] = t["library_axis1_ms"]
         if name in launches:
             entry["launches_render"] = launches[name]
+        # PF and PB are counted where a phase counts through `counters`;
+        # the subprocesses and the tools count K1-K4 alone (None)
         entry["launches_methods"] = {
-            run: n[name] for run, n in method_numbers["launches"].items()}
+            run: n.get(name) for run, n in method_numbers["launches"].items()}
         entry["launches_data_viewer"] = {
-            run: n[name] for run, n in data_numbers["launches"].items()}
+            run: n.get(name) for run, n in data_numbers["launches"].items()}
         entry["launches_process_data"] = {
-            run: n[name] for run, n in process_numbers["launches"].items()}
+            run: n.get(name) for run, n in process_numbers["launches"].items()}
         entry["launches_parallel"] = {
-            "nccl_world1_run": parallel_numbers["launches"]["nccl_world1_run"][name],
-            "ranks": [{path: n[name] for path, n in rank.items()}
+            "nccl_world1_run": parallel_numbers["launches"]["nccl_world1_run"].get(name),
+            "ranks": [{path: n.get(name) for path, n in rank.items()}
                       for rank in parallel_numbers["launches"]["ranks"]]}
-        entry["launches_quality"] = quality_numbers["launches"][name]
+        entry["launches_quality"] = quality_numbers["launches"].get(name)
         entry["launches_configs"] = {
-            run: n[name] for run, n in configs_numbers["launches"].items()}
-        entry["launches_4k"] = largest_numbers["launches"]["4k_frame"][name]
+            run: n.get(name) for run, n in configs_numbers["launches"].items()}
+        entry["launches_4k"] = largest_numbers["launches"]["4k_frame"].get(name)
         entry["launches_30k"] = {
-            run: n[name] for run, n in largest_numbers["launches"].items()
+            run: n.get(name) for run, n in largest_numbers["launches"].items()
             if run != "4k_frame"}
         entry["launches_tools"] = {
-            run: n[name] for run, n in tools_numbers["launches"].items()}
+            run: n.get(name) for run, n in tools_numbers["launches"].items()}
         if name in resident:
             entry["resident_ctas_per_sm"] = resident[name][ch]
         kernels.append(entry)
     kernels.extend(probe_kernels)
     print(json.dumps({"kernels": kernels,
+                      "projection": proj["numbers"],
                       "train_tile_lengths": tile_lengths,
                       "train_kept_warp_entries": warp_entries,
                       "k4_segments": k4_segments, "k4_glue": k4_glue,
@@ -1507,6 +1540,180 @@ def check_ablation(records, gids, bins, tiles_x, variants) -> dict:
             assert all(torch.equal(g, w) for g, w in zip(outs[variant], ref)), (
                 f"P1 {variant} is not bit-identical to its reference")
     return errs
+
+
+def projection_scene(dev) -> GaussianScene:
+    """PROJ_LANES lanes at SH degree 3, the first PROJ_ALIVE alive, drawn on
+    the card from the seed: phase 3's box of means in front of its camera,
+    log scales from -6 to -2.5, random rotations, opacities and colours."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n = PROJ_LANES
+    u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
+        shape, generator=g, device=dev)
+    means = torch.stack([u(-3.0, 3.0, n), u(-3.0, 3.0, n), u(-9.0, -2.0, n)], -1)
+    rest_rows = (SH_DEGREE + 1) ** 2 - 1
+    return GaussianScene(
+        means=means, scales=u(-6.0, -2.5, n, 3),
+        quats=torch.randn((n, 4), generator=g, device=dev),
+        features_dc=u(-1.5, 1.5, n, 3),
+        features_rest=0.3 * torch.randn((n, rest_rows, 3), generator=g,
+                                        device=dev),
+        opacities=u(-2.0, 3.0, n, 1),
+        alive=torch.arange(n, device=dev) < PROJ_ALIVE)
+
+
+def lane_errors(got, exact):
+    """Per lane, the largest |got - exact| over the lane's largest |exact|
+    (tests/test_torch_gpu.py's measure)."""
+    got = got.reshape(got.shape[0], -1).double()
+    exact = exact.reshape(exact.shape[0], -1).double()
+    return (got - exact).abs().amax(1) / (exact.abs().amax(1) + 1e-30)
+
+
+def projection_phase(dev, camera, iters: int) -> dict:
+    """Phase 10(b): PF and PB (``ops/project_cuda.py``) at the main path's
+    lanes and SH degree, 800x800, antialiased, against
+    ``splat_inputs_plain`` on the same inputs at the gpu tests'
+    tolerances: the float outputs within rtol 1e-5 / atol 1e-6, radii and
+    tile counts equal on all but 0.001% of lanes and never more than 1
+    apart; the six gradients of a random weighting of the float outputs
+    against the plain path in f64, the kernels' per-lane error within 1.5x
+    the plain f32 path's at the median and 99th percentile and 20x at the
+    worst lane; the view matrices' gradients (camera optimisation) within
+    4x the plain path's error plus 1e-5. PF once and PB once, as counted.
+    Then both kernels timed (profiler, events) beside the plain path's
+    forward and its backward alone, with their bytes at the HBM's rate."""
+    phase("10b projection kernels PF and PB at 2^21 lanes vs splat_inputs_plain")
+    t0 = time.perf_counter()
+    config = VanillaConfig(sh_degree=SH_DEGREE, rasterize_mode="antialiased")
+    scene = projection_scene(dev)
+    exact = GaussianScene(**{k: getattr(scene, k).detach().double()
+                             for k in project_cuda.PARAM_NAMES},
+                          alive=scene.alive)
+    cam64 = Camera(*(getattr(camera, k).double()
+                     for k in ("fx", "fy", "cx", "cy", "c2w")))
+    viewmat, fullmat = cameras_mod.camera_matrices(camera, H, W)
+    setting = project_cuda.Setting(H, W, 16, SH_DEGREE, False, True)
+    params = [getattr(scene, k) for k in project_cuda.PARAM_NAMES]
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    floats = ("xys", "depths", "conics", "colors", "opacities")
+    weights = {}
+    outs, grads, view_grads = {}, {}, {}
+    for run in ("kernels", "plain", "f64"):
+        dtype = torch.float64 if run == "f64" else torch.float32
+        vm, fm = (m.detach().to(dtype).requires_grad_()
+                  for m in (viewmat, fullmat))
+        sc = exact if run == "f64" else scene
+        for f in (project_fwd, project_bwd):
+            f.launches = 0
+        if run == "kernels":
+            out = project_cuda.project_splats(
+                sc, sc.alive, project_cuda.view_params(camera, vm, fm),
+                setting)
+        else:
+            out = vanilla_mod.splat_inputs_plain(
+                sc, cam64 if run == "f64" else camera, vm, fm, sc.alive, H, W,
+                sh_degree=SH_DEGREE, config=config)
+        for k in floats:
+            if k not in weights:
+                weights[k] = torch.randn(out[k].shape, generator=g, device=dev)
+        loss = sum((out[k] * weights[k].to(dtype)).sum() for k in floats)
+        wrt = [getattr(sc, k) for k in project_cuda.PARAM_NAMES]
+        got = torch.autograd.grad(loss, [*wrt, vm, fm])
+        grads[run] = got[:-2]
+        view_grads[run] = (got[-2][:3], got[-1])
+        outs[run] = {k: v.detach() for k, v in out.items()}
+        if run == "kernels":
+            assert (project_fwd.launches, project_bwd.launches) == (1, 1), (
+                project_fwd.launches, project_bwd.launches)
+        del out, loss
+    fused, plain = outs["kernels"], outs["plain"]
+    fwd_err = 0.0
+    for k in floats:
+        assert_close(f"PF {k}", fused[k], plain[k], rtol=1e-5, atol=1e-6)
+        fwd_err = max(fwd_err, float((fused[k] - plain[k]).abs().max()))
+    flips = {}
+    for k in ("radii", "num_tiles_hit"):
+        diff = (fused[k] - plain[k]).abs()
+        flips[k] = int((diff > 0).sum())
+        assert flips[k] <= 1e-5 * PROJ_LANES and int(diff.max()) <= 1, (k, flips)
+    visible = int((plain["radii"] > 0).sum())
+    assert 0.05 * PROJ_ALIVE < visible <= PROJ_ALIVE, visible
+    lane_err = {}
+    for name, got, want, ref in zip(project_cuda.PARAM_NAMES, grads["kernels"],
+                                    grads["plain"], grads["f64"]):
+        e_got, e_plain = lane_errors(got, ref), lane_errors(want, ref)
+        q = torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev)
+        qg, qp = torch.quantile(e_got, q).tolist(), torch.quantile(e_plain, q).tolist()
+        worst = (float(e_got.max()), float(e_plain.max()))
+        lane_err[name] = {"kernels_p50_p99_max": [*qg, worst[0]],
+                          "plain_p50_p99_max": [*qp, worst[1]]}
+        assert all(a <= 1.5 * b + 1e-7 for a, b in zip(qg, qp)), (name, lane_err[name])
+        assert worst[0] <= 20 * worst[1] + 1e-7, (name, lane_err[name])
+        assert float(ref.abs().max()) > 0, name
+    bwd_err = max(float((a - b).abs().max())
+                  for a, b in zip(grads["kernels"], grads["plain"]))
+    view_err = {}
+    for j, name in enumerate(("viewmat", "fullmat")):
+        got, want, ref = (view_grads[r][j] for r in ("kernels", "plain", "f64"))
+        norm = lambda x: float(x.double().norm())
+        err = (norm(got.double() - ref) / norm(ref),
+               norm(want.double() - ref) / norm(ref))
+        view_err[name] = err
+        assert err[0] <= 4 * err[1] + 1e-5, (name, err)
+    print(f"{PROJ_LANES} lanes ({PROJ_ALIVE} alive, {visible} visible), SH "
+          f"{SH_DEGREE}, {W}x{H}, antialiased: PF max abs err {fwd_err:.3g}, "
+          f"radii / tile counts differing on {flips} lanes; gradient error a "
+          f"lane against f64 (p50, p99, max; kernels and plain) {lane_err}; "
+          f"view gradients' error against f64 (kernels, plain) {view_err}")
+    del outs, grads, view_grads, exact
+
+    # timings: the wrappers and kernels alone, the plain forward, and the
+    # plain backward alone (its graph kept across calls)
+    alive = scene.alive
+    view = project_cuda.view_params(camera, viewmat, fullmat)
+    with torch.no_grad():
+        cot = [torch.randn(x.shape, generator=g, device=dev) for x in (
+            plain["xys"], plain["depths"], plain["conics"], plain["colors"],
+            plain["opacities"])]
+    pf = lambda: project_fwd([p.detach() for p in params], alive, view, setting)
+    pb = lambda: project_bwd([p.detach() for p in params], alive, view, cot,
+                             setting)
+    alive_plain = scene.alive
+
+    def plain_fwd():
+        with torch.no_grad():
+            return vanilla_mod.splat_inputs_plain(
+                scene, camera, viewmat, fullmat, alive_plain, H, W,
+                sh_degree=SH_DEGREE, config=config)
+
+    graph = vanilla_mod.splat_inputs_plain(
+        scene, camera, viewmat, fullmat, alive_plain, H, W,
+        sh_degree=SH_DEGREE, config=config)
+    graph_loss = sum((graph[k] * c).sum() for k, c in zip(floats, cot))
+    plain_bwd = lambda: torch.autograd.grad(graph_loss, params,
+                                            retain_graph=True)
+    fwd = {**kernel_device_ms(pf, "project_fwd_kernel", iters),
+           "wrapper_ms": event_ms(pf, iters), "plain_ms": event_ms(plain_fwd, 5),
+           "library_ms": None}
+    bwd = {**kernel_device_ms(pb, "project_bwd_kernel", iters),
+           "wrapper_ms": event_ms(pb, iters), "plain_ms": event_ms(plain_bwd, 5),
+           "library_ms": None}
+    del graph, graph_loss
+    rest = 4 * 3 * ((SH_DEGREE + 1) ** 2 - 1)
+    lane_in = 12 + 12 + 16 + 4 + 12 + rest + 1  # the parameters and alive
+    lane_out = 8 + 4 + 4 + 12 + 4 + 16 + 4  # the seven outputs
+    lane_cot = 8 + 4 + 12 + 16 + 4  # xys, depths, conics, colors, opacities
+    lane_grads = 12 + 12 + 16 + 12 + rest + 4
+    fwd_bytes = PROJ_LANES * (lane_in + lane_out)
+    bwd_bytes = PROJ_LANES * (lane_in + lane_cot + lane_grads)
+    print(f"PF {fwd}\nPB {bwd}\nbytes PF {fwd_bytes} PB {bwd_bytes}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"fwd": fwd, "bwd": bwd, "fwd_bytes": fwd_bytes,
+            "bwd_bytes": bwd_bytes, "fwd_err": fwd_err, "bwd_err": bwd_err,
+            "numbers": {"lanes": PROJ_LANES, "alive": PROJ_ALIVE,
+                        "visible": visible, "flips": flips,
+                        "lane_errors": lane_err, "view_errors": view_err}}
 
 
 def probes_phase(k1_render, k1_ms, k1_bytes, k1_ops):

@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels into one shared library, on first use.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process per
-source, all started together), linked into ``libgstk_torch.so`` with a plain
-C interface and loaded with ``ctypes``: no PyTorch headers are compiled, so a
-cold build takes seconds. The library goes to ``build/gstk_torch/<hash>/``
+source, all started together; :data:`SOURCE_FLAGS` adds a source's own),
+linked into ``libgstk_torch.so`` with a plain C interface and loaded with
+``ctypes``: no PyTorch headers are compiled, so a cold build takes seconds. The library goes to ``build/gstk_torch/<hash>/``
 beside the package, keyed by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused. The ``-Xptxas -v`` report of
 each kernel (registers, shared memory, spills) is kept beside it.
@@ -30,6 +30,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "gstk_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# the projection kernels repeat PyTorch's elementwise ops one rounding at a
+# time (csrc/project_common.cuh), so no multiply and add is fused into an fma
+SOURCE_FLAGS = {"project_fwd.cu": ["-fmad=false"],
+                "project_bwd.cu": ["-fmad=false"]}
 LIB_NAME = "libgstk_torch.so"
 # the first load builds; a render thread (the viewer's) and the trainer may
 # both reach it, and the build's scratch directory is one per process
@@ -67,6 +71,7 @@ def _sources() -> List[Path]:
 
 def _key() -> str:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -90,7 +95,8 @@ def build() -> BuildResult:
         procs = []
         for src in _sources():
             obj = tmp / (src.stem + ".o")
-            cmd = [nvcc, *CFLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+            cmd = [nvcc, *CFLAGS, *SOURCE_FLAGS.get(src.name, []),
+                   "-Xptxas", "-v", "-I", str(CSRC),
                    "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -1,11 +1,12 @@
 """Vanilla 3D Gaussian Splatting model: render and loss (port of
 ``gstk_tpu/models/vanilla.py``).
 
-:func:`render_scene` runs projection and SH (:func:`splat_inputs`) and one
-fused rasterization pass with RGB plus depth as a 4th channel
-(:func:`render_splats`); a zero
-``xys_offset`` gives the screen-space positional gradient that densification
-reads. :func:`rgb_loss` is (1 - lambda) L1 + lambda (1 - SSIM) with an
+:func:`render_scene` runs projection and SH (:func:`splat_inputs`: two CUDA
+kernels on the card, their plain twin :func:`splat_inputs_plain` on the CPU
+and under ``backend="plain"``) and one fused rasterization pass with RGB plus
+depth as a 4th channel (:func:`render_splats`); a zero ``xys_offset`` gives
+the screen-space positional gradient that densification reads.
+:func:`rgb_loss` is (1 - lambda) L1 + lambda (1 - SSIM) with an
 optional mask and scale regularizer. Wherever gstk_tpu clips a
 differentiated value with ``jnp.minimum``/``jnp.maximum``, the port uses
 ``torch.minimum``/``torch.maximum``, whose gradient splits at a tie as
@@ -23,8 +24,9 @@ import torch
 
 from gstk_torch.core.cameras import Camera, camera_matrices
 from gstk_torch.core.gaussians import GaussianScene
+from gstk_torch.ops import project_cuda
 from gstk_torch.ops.projection import project_gaussians
-from gstk_torch.ops.rasterize import RasterizeConfig, rasterize
+from gstk_torch.ops.rasterize import BACKENDS, RasterizeConfig, rasterize
 from gstk_torch.ops.sh import spherical_harmonics
 from gstk_torch.utils import losses
 from gstk_torch.utils.math import normalize
@@ -76,6 +78,21 @@ def downscale_factor(cfg: VanillaConfig, step: int) -> int:
     return 2 ** max(cfg.num_downscales - int(step) // cfg.resolution_schedule, 0)
 
 
+def _antialiased(config: VanillaConfig) -> bool:
+    if config.rasterize_mode not in ("classic", "antialiased"):
+        raise ValueError(f"Unknown rasterize_mode {config.rasterize_mode}")
+    return config.rasterize_mode == "antialiased"
+
+
+def _takes_kernels(device: torch.device, backend: str) -> bool:
+    """The rasterizer's rule (:class:`RasterizeConfig`'s ``backend``):
+    ``"auto"`` takes the kernels for CUDA tensors, ``"plain"`` the plain
+    twin on any device."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    return backend == "auto" and device.type == "cuda"
+
+
 def splat_inputs(
     scene: GaussianScene,
     camera: Camera,
@@ -86,54 +103,91 @@ def splat_inputs(
     config: VanillaConfig = VanillaConfig(),
     block_width: int = 16,
     crop_box=None,
+    backend: str = "auto",
 ) -> Dict[str, torch.Tensor]:
     """Projection, SH colors and opacities of one view: the arguments of
     :func:`gstk_torch.ops.rasterize.rasterize` (``colors`` holds RGB plus
     depth as a 4th channel; dead lanes, and lanes outside ``crop_box`` when
-    one is given, have radius, tile count and opacity 0)."""
-    with timer("project"):
-        means = scene.means
-        quats = normalize(scene.quats)
-        scales = torch.exp(scene.scales)
-        viewmat, fullmat = camera_matrices(camera, img_height, img_width)
+    one is given, have radius, tile count and opacity 0).
 
-        proj = project_gaussians(
-            means, scales, 1.0, quats, viewmat, fullmat,
-            camera.fx, camera.fy, camera.cx, camera.cy,
-            img_height, img_width, block_width,
-        )
+    ``backend`` is the rasterizer's (:class:`RasterizeConfig`): under
+    ``"auto"`` the two kernels of :mod:`gstk_torch.ops.project_cuda` compute
+    it for CUDA tensors, camera gradients included; their plain twin,
+    :func:`splat_inputs_plain`, does for CPU tensors and under
+    ``"plain"``."""
+    with timer("project"):
+        viewmat, fullmat = camera_matrices(camera, img_height, img_width)
         # dead lanes never enter binning or compositing; a crop box filters
         # renders the same way
         alive = scene.alive
         if crop_box is not None:
-            alive = alive & crop_box.within(means.detach())
-
-        if sh_degree > 0 or config.sh_degree > 0:
-            coeffs = torch.cat(
-                [scene.features_dc[:, None, :], scene.features_rest], dim=1
+            alive = alive & crop_box.within(scene.means.detach())
+        if _takes_kernels(scene.means.device, backend):
+            setting = project_cuda.Setting(
+                img_height, img_width, block_width, int(sh_degree),
+                not (sh_degree > 0 or config.sh_degree > 0),
+                _antialiased(config),
             )
-            viewdirs = normalize(means.detach() - camera.position.detach()[None, :])
-            rgbs = spherical_harmonics(int(sh_degree), viewdirs, coeffs)
-            rgbs = rgbs + 0.5
-            rgbs = torch.maximum(rgbs, torch.zeros_like(rgbs))
-        else:
-            rgbs = torch.sigmoid(scene.features_dc)
+            return project_cuda.project_splats(
+                scene, alive, project_cuda.view_params(camera, viewmat, fullmat),
+                setting,
+            )
+        return splat_inputs_plain(
+            scene, camera, viewmat, fullmat, alive, img_height, img_width,
+            sh_degree=sh_degree, config=config, block_width=block_width,
+        )
 
-        opac = torch.sigmoid(scene.opacities)[:, 0]
-        if config.rasterize_mode == "antialiased":
-            opac = opac * proj.compensation
-        elif config.rasterize_mode != "classic":
-            raise ValueError(f"Unknown rasterize_mode {config.rasterize_mode}")
-        return {
-            "xys": proj.xys,
-            "depths": proj.depths,
-            "radii": torch.where(alive, proj.radii, 0),
-            "conics": proj.conics,
-            "num_tiles_hit": torch.where(alive, proj.num_tiles_hit, 0),
-            # one fused pass: RGB + depth as a 4th channel
-            "colors": torch.cat([rgbs, proj.depths[:, None]], dim=-1),
-            "opacities": torch.where(alive, opac, 0.0),
-        }
+
+def splat_inputs_plain(
+    scene: GaussianScene,
+    camera: Camera,
+    viewmat: torch.Tensor,
+    fullmat: torch.Tensor,
+    alive: torch.Tensor,
+    img_height: int,
+    img_width: int,
+    *,
+    sh_degree: int,
+    config: VanillaConfig = VanillaConfig(),
+    block_width: int = 16,
+) -> Dict[str, torch.Tensor]:
+    """:func:`splat_inputs` in plain tensor code, from the view's matrices
+    and the lanes to render (``alive``, crop box applied); differentiable in
+    the camera's matrices too."""
+    means = scene.means
+    quats = normalize(scene.quats)
+    scales = torch.exp(scene.scales)
+
+    proj = project_gaussians(
+        means, scales, 1.0, quats, viewmat, fullmat,
+        camera.fx, camera.fy, camera.cx, camera.cy,
+        img_height, img_width, block_width,
+    )
+
+    if sh_degree > 0 or config.sh_degree > 0:
+        coeffs = torch.cat(
+            [scene.features_dc[:, None, :], scene.features_rest], dim=1
+        )
+        viewdirs = normalize(means.detach() - camera.position.detach()[None, :])
+        rgbs = spherical_harmonics(int(sh_degree), viewdirs, coeffs)
+        rgbs = rgbs + 0.5
+        rgbs = torch.maximum(rgbs, torch.zeros_like(rgbs))
+    else:
+        rgbs = torch.sigmoid(scene.features_dc)
+
+    opac = torch.sigmoid(scene.opacities)[:, 0]
+    if _antialiased(config):
+        opac = opac * proj.compensation
+    return {
+        "xys": proj.xys,
+        "depths": proj.depths,
+        "radii": torch.where(alive, proj.radii, 0),
+        "conics": proj.conics,
+        "num_tiles_hit": torch.where(alive, proj.num_tiles_hit, 0),
+        # one fused pass: RGB + depth as a 4th channel
+        "colors": torch.cat([rgbs, proj.depths[:, None]], dim=-1),
+        "opacities": torch.where(alive, opac, 0.0),
+    }
 
 
 def render_splats(
@@ -198,7 +252,7 @@ def render_scene(
     inputs = splat_inputs(
         scene, camera, img_height, img_width, sh_degree=sh_degree,
         config=config, block_width=raster_config.block_width,
-        crop_box=crop_box,
+        crop_box=crop_box, backend=raster_config.backend,
     )
     if xys_offset is not None:
         inputs["xys"] = inputs["xys"] + xys_offset

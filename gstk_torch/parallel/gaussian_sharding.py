@@ -204,7 +204,7 @@ def render_scene_gauss_sharded(
     local = splat_inputs(
         scene, camera, img_height, img_width, sh_degree=sh_degree,
         config=config, block_width=raster_config.block_width,
-        crop_box=crop_box,
+        crop_box=crop_box, backend=raster_config.backend,
     )
     if xys_offset is not None:
         local["xys"] = local["xys"] + xys_offset

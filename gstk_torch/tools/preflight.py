@@ -9,9 +9,10 @@ twin. So:
 * :func:`kernel_hash` fingerprints every file that can change what the
   card computes on the hot path: the CUDA sources and header
   (``gstk_torch/csrc/*.cu*``), their build (``_build.py``), the kernels'
-  wrappers (``ops/raster_cuda.py``, ``ops/segment_kernel.py``), the code
-  around them (``ops/binning.py``, ``ops/projection.py``,
-  ``ops/rasterize.py``) and the losses (``utils/losses.py``);
+  wrappers (``ops/raster_cuda.py``, ``ops/segment_kernel.py``,
+  ``ops/project_cuda.py``), the code around them (``ops/binning.py``,
+  ``ops/projection.py``, ``ops/rasterize.py``, ``ops/sh.py``,
+  ``models/vanilla.py``) and the losses (``utils/losses.py``);
 * a stamp, ``.preflight_stamp_torch.json`` at the repo's root (untracked),
   records the hash when a card parity run last passed: ``chip_smoke.py``
   writes it when every phase has passed, and ``run`` when
@@ -47,11 +48,14 @@ STAMP_NAME = ".preflight_stamp_torch.json"
 KERNEL_GLOBS = ["gstk_torch/csrc/*.cu*"]
 KERNEL_FILES = [
     "gstk_torch/_build.py",
+    "gstk_torch/models/vanilla.py",
     "gstk_torch/ops/binning.py",
+    "gstk_torch/ops/project_cuda.py",
     "gstk_torch/ops/projection.py",
     "gstk_torch/ops/raster_cuda.py",
     "gstk_torch/ops/rasterize.py",
     "gstk_torch/ops/segment_kernel.py",
+    "gstk_torch/ops/sh.py",
     "gstk_torch/utils/losses.py",
 ]
 SKIP_ENV = "GSTK_SKIP_PREFLIGHT"

@@ -11,7 +11,8 @@ rasterizer and SSIM, but not in two places of the training step:
     t`` (``tinv`` alone) and ``fullmat = projmat @ viewmat`` (``fullmat``
     alone), which place every Gaussian's centre on the screen;
   * ``sh``: ``ops/sh.py::spherical_harmonics``, the colour's einsum of the
-    SH bases and coefficients.
+    SH bases and coefficients (``splat_inputs`` then projects through its
+    plain twin, which calls it, and not through the CUDA kernels).
 
 This script replaces those products in the port with the same rounding
 (``torch.bfloat16`` round-to-nearest-even operands, f32 products and sums),
@@ -66,7 +67,8 @@ from gstk_torch.tools import run_quality
 from gstk_torch.tools import quality_workflow as qw
 from gstk_torch.utils.math import projection_matrix
 
-_exact = {"cameras": vanilla.camera_matrices, "sh": vanilla.spherical_harmonics}
+_exact = {"cameras": vanilla.camera_matrices, "sh": vanilla.spherical_harmonics,
+          "splat": vanilla.splat_inputs}
 
 
 def bf16(x: torch.Tensor) -> torch.Tensor:
@@ -103,6 +105,12 @@ def rounded_spherical_harmonics(degree: int, viewdirs, coeffs):
                         bf16(coeffs[..., :basis_dim, :]))
 
 
+def plain_splat_inputs(*args, **kwargs):
+    """``splat_inputs`` under ``backend="plain"``, whatever the caller
+    asks: the rounded ``spherical_harmonics`` is the plain twin's."""
+    return _exact["splat"](*args, **{**kwargs, "backend": "plain"})
+
+
 def set_rounding(parts: List[str]) -> None:
     products = tuple(p for p in ("tinv", "fullmat")
                      if p in parts or "cameras" in parts)
@@ -111,6 +119,8 @@ def set_rounding(parts: List[str]) -> None:
         if products else _exact["cameras"])
     vanilla.spherical_harmonics = (rounded_spherical_harmonics
                                    if "sh" in parts else _exact["sh"])
+    vanilla.splat_inputs = (plain_splat_inputs if "sh" in parts
+                            else _exact["splat"])
 
 
 def screen_shift(data: Path, size: int, products) -> dict:

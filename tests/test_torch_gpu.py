@@ -555,6 +555,296 @@ def test_train_cache_build_on_the_card(cuda, tmp_path):
     assert torch.equal(imgs, trainer_mod.area_downscale(stack, 4))
 
 
+# -- the projection kernels (csrc/project_fwd.cu, csrc/project_bwd.cu) -----
+
+PROJ_H, PROJ_W, PROJ_F = 240, 320, 300.0
+
+
+def _close_lanes(got, want, rtol, share):
+    """|got - want| <= rtol |want| + share * (the lane's largest |want|)."""
+    lane = want.abs().reshape(want.shape[0], -1).amax(1)
+    atol = share * lane.reshape((-1,) + (1,) * (want.ndim - 1))
+    ok = (got - want).abs() <= atol + rtol * want.abs()
+    assert bool(ok.all()), (
+        f"{int((~ok).sum())} of {ok.numel()} outside, lanes "
+        f"{torch.nonzero(~ok)[:4, 0].tolist()}")
+
+
+def _lane_errors(got, exact):
+    """Per lane, the largest |got - exact| over the lane's largest
+    |exact|."""
+    got = got.reshape(got.shape[0], -1).double()
+    exact = exact.reshape(exact.shape[0], -1).double()
+    return (got - exact).abs().amax(1) / (exact.abs().amax(1) + 1e-30)
+
+
+def _projection_case(cuda, sh=3, seed=0, n=1 << 16):
+    """A drawn scene of ``n`` lanes at SH degree ``sh``: a tenth dead, means
+    in front of, beside and behind the camera, scales from sub-pixel to a
+    fifth of the view. Planted ties: lane 0's mean lies on the view-space
+    clamp +1.3 tan(fovx), lane 1's on -1.3 tan(fovy) (tz = 2, so t * (1/tz)
+    is exact), lane 2's red SH colour on max(rgb + 0.5, 0)'s tie."""
+    rng = np.random.default_rng(seed)
+    arrays = _scene(rng, n=n, sh=sh)
+    arrays["means"] = np.stack([rng.uniform(-6, 6, n), rng.uniform(-4, 4, n),
+                                rng.uniform(-12, 1, n)], -1).astype(np.float32)
+    arrays["scales"] = rng.uniform(-5.0, -0.5, (n, 3)).astype(np.float32)
+    arrays["alive"] = rng.random(n) > 0.1
+    f = np.float32
+    lim_x = f(1.3) * ((f(1) / f(PROJ_F)) * f(0.5 * PROJ_W))
+    lim_y = f(1.3) * ((f(1) / f(PROJ_F)) * f(0.5 * PROJ_H))
+    # OpenGL c2w = I: view space is (x, -y, -z) of the world
+    arrays["means"][0] = (2 * lim_x, 0.0, -2.0)
+    arrays["means"][1] = (0.3, 2 * lim_y, -2.0)
+    arrays["scales"][:2] = np.log([0.5, 0.3, 0.2])
+    arrays["alive"][:3] = True
+    c0 = f(0.28209479177387814)
+    arrays["features_dc"][2, 0] = f(-0.5) / c0
+    while c0 * arrays["features_dc"][2, 0] != f(-0.5):
+        arrays["features_dc"][2, 0] = np.nextafter(arrays["features_dc"][2, 0],
+                                                   f(0))
+    arrays["features_rest"][2, :, 0] = 0.0
+    arrays["means"][2] = (0.1, 0.1, -4.0)
+    scene = scene_from_numpy(arrays, cuda)
+    camera = Camera.create(PROJ_F, PROJ_F, PROJ_W / 2, PROJ_H / 2,
+                           np.eye(4)[:3], device=cuda)
+    return scene, camera
+
+
+def _projection_runs(scene, camera, degree, config, crop_box=None,
+                     weighted=None):
+    """splat_inputs (the kernels), splat_inputs_plain and the plain path in
+    f64 (same matrices, lanes and cotangents), each with the gradients of
+    one random weighting of its float outputs (those named in ``weighted``,
+    else all) w.r.t. the scene's parameters; the kernels' launch counts."""
+    from gstk_torch.core.cameras import camera_matrices
+    from gstk_torch.core.gaussians import GaussianScene
+    from gstk_torch.models import vanilla
+    from gstk_torch.ops import project_cuda
+
+    viewmat, fullmat = camera_matrices(camera, PROJ_H, PROJ_W)
+    alive = scene.alive
+    if crop_box is not None:
+        alive = alive & crop_box.within(scene.means.detach())
+    exact = GaussianScene(**{k: getattr(scene, k).detach().double()
+                             for k in project_cuda.PARAM_NAMES}, alive=alive)
+    cam64 = Camera(*(getattr(camera, k).double()
+                     for k in ("fx", "fy", "cx", "cy", "c2w")))
+    g = torch.Generator(device=scene.means.device).manual_seed(degree + 7)
+    weights = None
+    outs, grads, launches = [], [], None
+    for run in ("kernels", "plain", "f64"):
+        before = (project_cuda.project_fwd.launches,
+                  project_cuda.project_bwd.launches)
+        if run == "kernels":
+            out = vanilla.splat_inputs(scene, camera, PROJ_H, PROJ_W,
+                                       sh_degree=degree, config=config,
+                                       crop_box=crop_box)
+            launches = (project_cuda.project_fwd.launches - before[0],)
+        elif run == "plain":
+            out = vanilla.splat_inputs_plain(
+                scene, camera, viewmat, fullmat, alive, PROJ_H, PROJ_W,
+                sh_degree=degree, config=config)
+        else:
+            scene = exact
+            out = vanilla.splat_inputs_plain(
+                exact, cam64, viewmat.double(), fullmat.double(), alive,
+                PROJ_H, PROJ_W, sh_degree=degree, config=config)
+        floats = [k for k in project_cuda.OUTPUT_NAMES
+                  if out[k].dtype.is_floating_point
+                  and k in (weighted or project_cuda.OUTPUT_NAMES)]
+        if weights is None:
+            weights = {k: torch.randn(out[k].shape, generator=g,
+                                      device=out[k].device) for k in floats}
+        loss = sum((out[k] * weights[k].to(out[k].dtype)).sum()
+                   for k in floats)
+        params = [getattr(scene, k) for k in project_cuda.PARAM_NAMES]
+        got = torch.autograd.grad(loss, params, allow_unused=True)
+        grads.append([torch.zeros_like(p) if x is None else x
+                      for p, x in zip(params, got)])
+        outs.append({k: v.detach() for k, v in out.items()})
+        if run == "kernels":
+            launches += (project_cuda.project_bwd.launches - before[1],)
+    return outs, grads, launches
+
+
+PROJ_CASES = [(3, 0, "classic"), (3, 0, "antialiased"), (3, 1, "classic"),
+              (3, 1, "antialiased"), (3, 2, "classic"), (3, 2, "antialiased"),
+              (3, 3, "classic"), (3, 3, "antialiased"), (4, 4, "antialiased"),
+              (0, 0, "sigmoid")]
+
+
+@pytest.mark.parametrize("case", PROJ_CASES,
+                         ids=[f"sh{a}-d{b}-{c}" for a, b, c in PROJ_CASES])
+def test_projection_kernels_match_plain(cuda, case):
+    """2^16 lanes, dead lanes and a crop box, degrees 0-4 (``sigmoid``: a
+    model without SH), classic and antialiased; one forward and one
+    backward launch. The float outputs within rtol 1e-5 / atol 1e-6 of the
+    plain path's; radii and tile counts equal on all but 0.001% of lanes
+    and never more than 1 apart. The six gradients as accurate as autograd
+    of the plain path: against the plain path in f64, the kernels' error a
+    lane (over the lane's largest gradient) within 1.5x the plain f32
+    path's at the median and the 99th percentile of lanes, and within 20x
+    at the worst lane. The two f32 paths sum in different orders, and on
+    ill-conditioned lanes (a nearly singular 2D covariance) both stray from
+    f64 by as much as 1e-2; a wrong term strays by far more, on every lane
+    it reaches."""
+    from gstk_torch.core.scene_box import OrientedBox
+    from gstk_torch.models.vanilla import VanillaConfig
+    from gstk_torch.ops import project_cuda
+
+    scene_sh, degree, mode = case
+    config = VanillaConfig(
+        sh_degree=scene_sh,
+        rasterize_mode="classic" if mode == "sigmoid" else mode)
+    scene, camera = _projection_case(cuda, sh=max(scene_sh, 3))
+    box = OrientedBox.from_params([0.2, 0.1, 0.5], [0.0, 0.0, -5.0],
+                                  [9.0, 6.0, 10.0], device=cuda)
+    (fused, plain, _), grads, launches = _projection_runs(
+        scene, camera, degree, config, crop_box=box)
+    assert launches == (1, 1)
+    for k in ("xys", "depths", "conics", "colors", "opacities"):
+        torch.testing.assert_close(fused[k], plain[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)
+    n = scene.capacity
+    for k in ("radii", "num_tiles_hit"):
+        diff = (fused[k] - plain[k]).abs()
+        assert int((diff > 0).sum()) <= 1e-5 * n and int(diff.max()) <= 1, k
+    visible = plain["radii"] > 0
+    assert 0.05 * n < int(visible.sum()) < 0.95 * n
+    for name, got, want, exact in zip(project_cuda.PARAM_NAMES, *grads):
+        e_got, e_plain = _lane_errors(got, exact), _lane_errors(want, exact)
+        for q in (0.5, 0.99):
+            assert (float(torch.quantile(e_got, q))
+                    <= 1.5 * float(torch.quantile(e_plain, q)) + 1e-7), (name, q)
+        assert float(e_got.max()) <= 20 * float(e_plain.max()) + 1e-7, name
+        assert float(exact.abs().max()) > 0 or (
+            name == "features_rest" and degree == 0), name
+
+
+def test_projection_kernels_split_the_gradient_at_ties(cuda):
+    """The planted ties: lanes 0 and 1 sit on the +-1.3 tan(fov) clamp of
+    the plain path on the card, lane 2's red on max(rgb + 0.5, 0), all three
+    visible. With the conics weighted (the clamp acts on them alone; the
+    pixel centre's and depth's gradients would drown it in the means'),
+    the kernels give lanes 0 and 1 the plain path's gradients within 1e-3
+    of the lane's largest (lane 0's scale and rotation gradients are small
+    beside its mean's, and both f32 paths stray 1e-4 of the lane from f64
+    there; a whole share at either clamp moves the means' by 10% or more).
+    With the colours weighted, lane 2's DC red gets half of C0 times its
+    colour's cotangent."""
+    from gstk_torch.models.vanilla import VanillaConfig
+
+    scene, camera = _projection_case(cuda, n=1 << 12)
+    config = VanillaConfig(sh_degree=3, rasterize_mode="antialiased")
+    (fused, plain, _), (g_fused, g_plain, _), _ = _projection_runs(
+        scene, camera, 3, config, weighted=("conics",))
+    assert bool((plain["radii"][:3] > 0).all())
+    t = scene.means.detach()[:2] * torch.tensor([1.0, -1.0, -1.0], device=cuda)
+    tan = 0.5 * PROJ_W / camera.fx, 0.5 * PROJ_H / camera.fy
+    assert float(t[0, 0] * (1.0 / t[0, 2])) == float(1.3 * tan[0])
+    assert float(t[1, 1] * (1.0 / t[1, 2])) == float(-1.3 * tan[1])
+    for got, want in zip(g_fused, g_plain):
+        _close_lanes(got[:2], want[:2], 0.0, 1e-3)
+    (fused, _, _), (g_fused, _, _), _ = _projection_runs(
+        scene, camera, 3, config, weighted=("colors",))
+    assert float(fused["colors"][2, 0]) == 0.0
+    g = torch.Generator(device=cuda).manual_seed(3 + 7)  # _projection_runs'
+    w_col = torch.randn(fused["colors"].shape, generator=g, device=cuda)
+    want = 0.5 * np.float32(0.28209479177387814) * float(w_col[2, 0])
+    assert float(g_fused[3][2, 0]) == pytest.approx(want, rel=1e-6)
+
+
+def _camera_grad_error(got, want, exact):
+    """|got - exact| against |want - exact| (the plain f32 path's), both
+    over |exact|: norms over the matrix's entries."""
+    norm = lambda x: float(x.double().norm())
+    return (norm(got.double() - exact) / norm(exact),
+            norm(want.double() - exact) / norm(exact))
+
+
+def test_camera_gradient_runs_the_kernels(cuda):
+    """Camera optimisation projects through the kernels. With viewmat and
+    fullmat given as leaves, PB's gradient of each entry the projection
+    reads is as accurate as autograd of the plain path: against the plain
+    path in f64, the kernels' error (norm over the entries, over the f64
+    gradient's norm) within 4x the plain f32 path's plus 1e-5; both f32
+    paths sum 2^16 lanes' terms, in different orders, and a wrong or
+    missing term moves the sum by far more. A second backward gives the
+    same bits (a fixed order of sums). With the camera's c2w requiring
+    grad, splat_inputs launches PF once and PB once, and c2w's gradient
+    meets the same bound against the f64 gradients of the matrices carried
+    back through camera_matrices."""
+    from gstk_torch.core.cameras import camera_matrices
+    from gstk_torch.core.gaussians import GaussianScene
+    from gstk_torch.models import vanilla
+    from gstk_torch.ops import project_cuda
+
+    scene, camera = _projection_case(cuda, n=1 << 16)
+    config = vanilla.VanillaConfig(sh_degree=3, rasterize_mode="antialiased")
+    exact = GaussianScene(**{k: getattr(scene, k).detach().double()
+                             for k in project_cuda.PARAM_NAMES},
+                          alive=scene.alive)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    floats = ("xys", "depths", "conics", "colors", "opacities")
+    weights = {}
+
+    def loss_of(out):
+        for k in floats:
+            if k not in weights:
+                weights[k] = torch.randn(out[k].shape, generator=g,
+                                         device=cuda)
+        return sum((out[k] * weights[k].to(out[k].dtype)).sum()
+                   for k in floats)
+
+    viewmat, fullmat = camera_matrices(camera, PROJ_H, PROJ_W)
+    setting = project_cuda.Setting(PROJ_H, PROJ_W, 16, 3, False, True)
+    cam64 = Camera(*(getattr(camera, k).double()
+                     for k in ("fx", "fy", "cx", "cy", "c2w")))
+    leaves = []
+    for run in ("kernels", "kernels_again", "plain", "f64"):
+        dtype = torch.float64 if run == "f64" else torch.float32
+        vm, fm = (m.detach().to(dtype).requires_grad_()
+                  for m in (viewmat, fullmat))
+        if run.startswith("kernels"):
+            out = project_cuda.project_splats(
+                scene, scene.alive, project_cuda.view_params(camera, vm, fm),
+                setting)
+        else:
+            out = vanilla.splat_inputs_plain(
+                exact if run == "f64" else scene,
+                cam64 if run == "f64" else camera, vm, fm, scene.alive,
+                PROJ_H, PROJ_W, sh_degree=3, config=config)
+        leaves.append(torch.autograd.grad(loss_of(out), (vm, fm)))
+    (k_vm, k_fm), (k2_vm, k2_fm), (p_vm, p_fm), (x_vm, x_fm) = leaves
+    assert torch.equal(k_vm, k2_vm) and torch.equal(k_fm, k2_fm)
+    assert float(k_vm[3].abs().max()) == 0.0 == float(k_fm[2].abs().max())
+    for name, got, want, ref in (("viewmat", k_vm[:3], p_vm[:3], x_vm[:3]),
+                                 ("fullmat", k_fm, p_fm, x_fm)):
+        err, err_plain = _camera_grad_error(got, want, ref)
+        assert err <= 4 * err_plain + 1e-5, (name, err, err_plain)
+
+    grads = []
+    for run in ("kernels", "plain"):
+        c2w = camera.c2w.detach().clone().requires_grad_()
+        cam = Camera(camera.fx, camera.fy, camera.cx, camera.cy, c2w)
+        before = (project_cuda.project_fwd.launches,
+                  project_cuda.project_bwd.launches)
+        out = vanilla.splat_inputs(
+            scene, cam, PROJ_H, PROJ_W, sh_degree=3, config=config,
+            backend="auto" if run == "kernels" else "plain")
+        (g_c2w,) = torch.autograd.grad(loss_of(out), c2w)
+        grads.append(g_c2w)
+        after = (project_cuda.project_fwd.launches,
+                 project_cuda.project_bwd.launches)
+        assert tuple(b - a for a, b in zip(before, after)) == (
+            (1, 1) if run == "kernels" else (0, 0)), run
+    (ref,) = torch.autograd.grad(camera_matrices(cam, PROJ_H, PROJ_W), c2w,
+                                 (x_vm.float(), x_fm.float()))
+    err, err_plain = _camera_grad_error(*grads, ref.double())
+    assert err <= 4 * err_plain + 1e-5, ("c2w", err, err_plain)
+
+
 # -- the back end (gs-eval, gs-render, gs-export) ----------------------------
 
 def _render_pair(scene, camera, h, w, **kw):

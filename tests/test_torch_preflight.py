@@ -40,17 +40,22 @@ def test_hash_covers_every_kernel_file():
                   for p in (REPO / "gstk_torch" / "csrc").iterdir())
     assert csrc and set(csrc) <= set(files)
     assert "gstk_torch/csrc/composite_common.cuh" in files
+    assert "gstk_torch/csrc/project_common.cuh" in files
     for rel in ("gstk_torch/_build.py", "gstk_torch/ops/raster_cuda.py",
                 "gstk_torch/ops/segment_kernel.py", "gstk_torch/ops/binning.py",
                 "gstk_torch/ops/projection.py", "gstk_torch/ops/rasterize.py",
-                "gstk_torch/utils/losses.py"):
+                "gstk_torch/utils/losses.py", "gstk_torch/ops/project_cuda.py",
+                "gstk_torch/ops/sh.py", "gstk_torch/models/vanilla.py"):
         assert rel in files and (REPO / rel).exists()
     assert files == sorted(files)
 
 
 @pytest.mark.parametrize("edited", ["gstk_torch/csrc/composite_fwd.cu",
                                     "gstk_torch/csrc/composite_common.cuh",
-                                    "gstk_torch/utils/losses.py"])
+                                    "gstk_torch/utils/losses.py",
+                                    "gstk_torch/csrc/project_bwd.cu",
+                                    "gstk_torch/ops/project_cuda.py",
+                                    "gstk_torch/models/vanilla.py"])
 def test_hash_stable_and_sensitive(fake_repo, monkeypatch, edited):
     monkeypatch.setattr(preflight, "REPO", REPO)
     h1 = preflight.kernel_hash()

@@ -437,7 +437,8 @@ def test_tools_import_neither_jax_nor_the_reference(tmp_path):
 def test_precision_probe_rounds_only_what_it_names(monkeypatch):
     """The probe's camera matrices are gstk_tpu's with the named products'
     operands rounded to bfloat16 (a TPU's default f32 matmul pass), and
-    setting no rounding restores the exact functions."""
+    setting no rounding restores the exact functions. Rounding the SH
+    einsum sends ``splat_inputs`` to its plain twin, which evaluates it."""
     import jax.numpy as jnp
 
     from gstk_torch.core.cameras import Camera
@@ -448,6 +449,7 @@ def test_precision_probe_rounds_only_what_it_names(monkeypatch):
     monkeypatch.setattr(vanilla, "camera_matrices", vanilla.camera_matrices)
     monkeypatch.setattr(vanilla, "spherical_harmonics",
                         vanilla.spherical_harmonics)
+    monkeypatch.setattr(vanilla, "splat_inputs", vanilla.splat_inputs)
     from gstk_tpu.core.cameras import view_matrix
     from gstk_tpu.utils.math import projection_matrix
 
@@ -477,9 +479,12 @@ def test_precision_probe_rounds_only_what_it_names(monkeypatch):
         assert not torch.equal(fm, probe._exact["cameras"](cam, 800, 800)[1])
         assert (vanilla.spherical_harmonics is probe.rounded_spherical_harmonics
                 ) == ("sh" in parts)
+        assert (vanilla.splat_inputs is probe.plain_splat_inputs
+                ) == ("sh" in parts)
     probe.set_rounding([])
     assert vanilla.camera_matrices is probe._exact["cameras"]
     assert vanilla.spherical_harmonics is probe._exact["sh"]
+    assert vanilla.splat_inputs is probe._exact["splat"]
 
 
 # -- the published configurations ----------------------------------------
