@@ -1,0 +1,16 @@
+"""Device time of the program's ``gstk.depth_terms`` spans a train step:
+co-gs's depth terms (sensor depth L1, the planar prior with its plane
+fits) inside ``gstk.loss`` (:mod:`_layer` beside this file). None where
+the program opens no such span."""
+
+import importlib.util
+from pathlib import Path
+
+_spec = importlib.util.spec_from_file_location(
+    "gsbench_layer", Path(__file__).with_name("_layer.py"))
+_layer = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_layer)
+
+
+def read(ctx):
+    return _layer.device_ms(ctx, "depth_terms")

@@ -154,12 +154,13 @@ def kernel_function(name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, the count of kernel launches a
-    wrapper keeps; the lock keeps the count whole when threads launch
-    together (``+=`` on an attribute is a read, an add and a write)."""
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to ``wrapper.launches`` (or the wrapper's ``counter``), a
+    count of kernel launches the wrapper keeps; the lock keeps the count
+    whole when threads launch together (``+=`` on an attribute is a read,
+    an add and a write)."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def check(name: str, err: int) -> None:

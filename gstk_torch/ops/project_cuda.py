@@ -202,10 +202,15 @@ def project_bwd(params: Sequence[torch.Tensor], alive: torch.Tensor,
                  torch.cuda.current_stream(means.device).cuda_stream)
     _build.check("project_bwd", err)
     _build.count_launch(project_bwd)
+    if view_grad:
+        _build.count_launch(project_bwd, "view_grad_launches")
     return (*grads, g_view)
 
 
 project_bwd.launches = 0
+# the backward's launches with view gradients, each also launching
+# view_grad_sum_kernel (camera optimisation)
+project_bwd.view_grad_launches = 0
 
 
 class _Project(torch.autograd.Function):

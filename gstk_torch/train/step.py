@@ -251,11 +251,12 @@ def make_train_step(
                 raise ValueError("camera optimisation needs camera_index")
             cam_adj = state.cam_adjust.detach().requires_grad_()
             wrt.append(cam_adj)
-            cam = apply_to_camera(
-                camera,
-                cam_adj.index_select(0, camera_index.reshape(1).long())[0],
-                camera_opt.mode,
-            )
+            with timer("camera"):
+                cam = apply_to_camera(
+                    camera,
+                    cam_adj.index_select(0, camera_index.reshape(1).long())[0],
+                    camera_opt.mode,
+                )
         render_kw = dict(sh_degree=sh_degree, background=background,
                          config=model_cfg, raster_config=raster_cfg,
                          xys_offset=xys_offset)
@@ -272,15 +273,18 @@ def make_train_step(
                           apply_scale_reg)
             depth_terms = {}
             if is_depth_model:
-                depth_terms = depth_loss_terms(
-                    model_cfg, state.step, out["depth"], depth, gt,
-                    loss_scene, generator, mask=mask, mono_scale=mono_scale,
-                    mono_shift=mono_shift, camera=cam,
-                )
+                with timer("depth_terms"):
+                    depth_terms = depth_loss_terms(
+                        model_cfg, state.step, out["depth"], depth, gt,
+                        loss_scene, generator, mask=mask,
+                        mono_scale=mono_scale, mono_shift=mono_shift,
+                        camera=cam,
+                    )
                 ld.update(depth_terms)
             loss = sum(ld.values())
             if use_cam_opt:
-                reg = pose_regularizer(cam_adj, camera_opt)
+                with timer("camera"):
+                    reg = pose_regularizer(cam_adj, camera_opt)
                 ld["camera_opt_regularizer"] = reg
                 if gauss_axis is None:
                     loss = loss + reg
@@ -320,10 +324,11 @@ def make_train_step(
             update_mask=state.scene.alive,
         )
         if use_cam_opt:
-            state.cam_adam = adam_step(
-                {"camera_opt": state.cam_adjust}, {"camera_opt": cam_grad},
-                state.cam_adam, state.step, cam_optim_cfg,
-            )
+            with timer("camera"):
+                state.cam_adam = adam_step(
+                    {"camera_opt": state.cam_adjust}, {"camera_opt": cam_grad},
+                    state.cam_adam, state.step, cam_optim_cfg,
+                )
         state.refine = refine
         state.step = state.step + 1
         return state
@@ -332,11 +337,12 @@ def make_train_step(
         """The reference's camera-opt metrics (camera_optimizers.py:139-148),
         of the updated adjustments."""
         if use_cam_opt:
-            adj = state.cam_adjust
-            metrics["camera_opt_translation"] = torch.mean(
-                torch.linalg.norm(adj[:, :3], dim=-1))
-            metrics["camera_opt_rotation"] = torch.mean(
-                torch.linalg.norm(adj[:, 3:], dim=-1))
+            with timer("camera"):
+                adj = state.cam_adjust
+                metrics["camera_opt_translation"] = torch.mean(
+                    torch.linalg.norm(adj[:, :3], dim=-1))
+                metrics["camera_opt_rotation"] = torch.mean(
+                    torch.linalg.norm(adj[:, 3:], dim=-1))
         return metrics
 
     def train_step(state: TrainState, camera: Camera, gt_image: torch.Tensor,
@@ -367,7 +373,8 @@ def make_train_step(
                     ),
                 )
                 state = apply(state, grads, cam_grad, refine)
-            return state, camera_metrics(state, metrics)
+                metrics = camera_metrics(state, metrics)
+            return state, metrics
 
     if micro_batch == 1:
         return train_step
@@ -421,6 +428,7 @@ def make_train_step(
                         rad_max.to(torch.float32) / max_img_size),
                 )
                 state = apply(state, gsum, csum, refine)
-            return state, camera_metrics(state, metrics)
+                metrics = camera_metrics(state, metrics)
+            return state, metrics
 
     return micro_train_step

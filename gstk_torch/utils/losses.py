@@ -231,9 +231,15 @@ def local_planar_loss(
     cov = centered.transpose(1, 2) @ centered / pts.shape[1]
     eye = torch.eye(3, dtype=depth.dtype, device=depth.device)
     _, vecs = torch.linalg.eigh(cov + 1e-12 * eye)
+    local_planar_loss.fits += 1
     normal = vecs[:, :, 0]
     dist = _abs((centered * normal[:, None, :]).sum(-1))
     return dist.mean(-1).mean()
+
+
+# the batched plane fits made (one ``eigh`` call each); on CUDA each waits
+# for the device, the one host sync of a co-gs step with the planar prior
+local_planar_loss.fits = 0
 
 
 def sparse_opacity_loss(opacities_sigmoid: torch.Tensor,

@@ -21,9 +21,13 @@ of a flag, about 0.1 us).
 The spans of the port, by layer: ``step`` (one train step, from
 :func:`gstk_torch.train.step.make_train_step`), ``project`` (projection,
 SH, colours and opacities), ``raster`` (footprints, binning and sort,
-compositing), ``loss``, ``backward``, ``update`` (densify statistics and
-Adam), ``refine``, ``grow_capacity`` and ``save_checkpoint`` (the
-trainer's), and ``copy_out`` (a render's outputs to the host).
+compositing), ``loss``, with ``depth_terms`` inside it (co-gs's depth
+terms), ``backward``, ``update`` (densify statistics and Adam),
+``camera`` (camera optimisation: the adjustment's exp map before
+``project``, the pose penalty inside ``loss``, the camera group's Adam and
+metrics inside ``update``), ``refine``, ``grow_capacity`` and
+``save_checkpoint`` (the trainer's), and ``copy_out`` (a render's outputs
+to the host).
 """
 
 from __future__ import annotations

@@ -1154,3 +1154,71 @@ def test_nccl_world_one_dp_step_is_the_step(cuda):
         assert all(torch.equal(m_got[k], m_want[k]) for k in m_want)
     finally:
         dist.destroy_process_group()
+
+
+def test_cogs_spans_hold_their_events(cuda):
+    """A co-gs step with the planar prior and SO3xR3 camera optimisation,
+    traced: every device event launched inside the planar fit's
+    ``linalg_eigh`` is charged to ``gstk.depth_terms``, and every one
+    launched by the camera group's Adam step or by the adjustment's exp
+    map to ``gstk.camera`` (as the benchmark's layer metrics charge them);
+    the planar-fit counter moves by the ``linalg_eigh`` calls traced and
+    PB's view-gradient counter by the ``view_grad_sum_kernel`` launches."""
+    from gstk_torch.core import camera_opt
+    from gstk_torch.core.camera_opt import CameraOptConfig
+    from gstk_torch.models.depth import DepthConfig
+    from gstk_torch.ops import project_cuda
+    from gstk_torch.ops.rasterize import RasterizeConfig
+    from gstk_torch.train import step as tstep
+    from gstk_torch.train.optim import OptimizerConfig
+    from gstk_torch.utils import losses
+
+    from gsbench import program
+    from gsbench import trace as gtrace
+
+    scene, camera = _projection_case(cuda, n=1 << 14)
+    model = DepthConfig(sh_degree=3, using_planar_loss=True)
+    fn = tstep.make_train_step(
+        model, RasterizeConfig(isect_capacity=1 << 20), OptimizerConfig(),
+        PROJ_H, PROJ_W, 3, camera_opt=CameraOptConfig(mode="SO3xR3"))
+    state = tstep.init_train_state(scene, num_cameras=2)
+    state.step.fill_(12_000)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gt = torch.rand(PROJ_H, PROJ_W, 3, generator=gen, device=cuda)
+    depth = 1.0 + torch.rand(PROJ_H, PROJ_W, generator=gen, device=cuda)
+    index = torch.ones((), dtype=torch.int32, device=cuda)
+
+    def step():
+        fn(state, camera, gt, gen, depth=depth, camera_index=index)
+
+    def marked(name, real):
+        def call(*args, **kwargs):
+            if name == "exp_map" or "camera_opt" in args[0]:
+                with torch.profiler.record_function("gsbench." + name):
+                    return real(*args, **kwargs)
+            return real(*args, **kwargs)
+        return call
+
+    step()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tstep, "adam_step", marked("camera_adam", tstep.adam_step))
+        m.setattr(tstep, "apply_to_camera",
+                  marked("exp_map", camera_opt.apply_to_camera))
+        fits, views = losses.local_planar_loss.fits, project_cuda.project_bwd.view_grad_launches
+        tr = gtrace.record(lambda: [step() for _ in range(2)], cuda)
+        fits = losses.local_planar_loss.fits - fits
+        views = project_cuda.project_bwd.view_grad_launches - views
+    assert gtrace.check(tr, True) == []
+    spans = program.of(tr)
+    for name in ("camera_adam", "exp_map"):
+        evs = tr.events_in(name)
+        assert evs and {spans.layer_of(e) for e in evs} == {"camera"}, name
+    eighs = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in tr.cpu_ops if e["name"] == "aten::linalg_eigh"]
+    inside = [e for e in tr.matched if any(
+        s <= float(tr.calls[e["args"]["correlation"]]["ts"]) <= t for s, t in eighs)]
+    assert inside and {spans.layer_of(e) for e in inside} == {"depth_terms"}
+    assert fits == len(eighs) == 2
+    summed = [e for e in tr.device if e.get("cat") == "kernel"
+              and "view_grad_sum_kernel" in e["name"]]
+    assert views == len(summed) == 2
