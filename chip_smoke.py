@@ -67,6 +67,18 @@ line:
      f64 as ``tests/test_torch_gpu.py`` judges them, PF and PB once each;
      both timed beside the plain forward and its backward alone, their
      bytes at the HBM's rate the bound in the ``kernels`` line;
+  10c. the Adam kernel AF (``train/adam_cuda.py``) at the same 2^21 lanes
+     (SH degree 3, a tenth dead with NaN gradients) against
+     ``adam_step_plain`` on copies of one state: parameters, moments and
+     count bit for bit after a step at steps 0, 12,093 and 29,998 (the
+     count equal to the step: the largest bias corrections, then across
+     the means decay's end), with a norm clip through ``adam_step`` at
+     12,093, and for the camera group (37 cameras, CameraOptConfig's
+     decay) from counts 1 and 29,998 at step 29,998; one launch a call;
+     AF timed beside the plain step, 28 B an element of its 59 a lane at
+     the HBM's rate the bound in the ``kernels`` line. Phase 10's step and
+     the later phases that reset the counters count AF too, once an Adam
+     state a step;
   11. trainer path: the port's synthetic-dataset generator writes 24 views
      at 800x800 of its 500-point object on the card, the dataset's seed
      cloud is rewritten with 100k points drawn around the object's, and
@@ -132,7 +144,8 @@ line:
      trained state (step 300: every gate open, scales anisotropic), one
      co-gs step (sensor depth L1, the sparse term, the planar term on 32x32
      patches, the camera group over the 21 views) through the kernels,
-     with the launch counters reset just before (K1-K4 once each), against
+     with the launch counters reset just before (K1-K4 once each, AF
+     twice: the scene's Adam state and the camera group's), against
      the same step with ``backend="plain"`` and a generator of the same
      seed (phase 10's tolerances, the camera group's moments and update
      too); K2's depth column is nonzero, the camera gradient finite and
@@ -299,7 +312,7 @@ line:
      (g) ``quality_workflow`` on CUDA refused (exit 3) without a preflight
      stamp; then, every phase passed, the preflight stamp is written and
      ``preflight check`` exits 0;
-then one ``kernels`` JSON line (K1-K4, PF and PB: launches per train step,
+then one ``kernels`` JSON line (K1-K4, PF, PB and AF: launches per train step,
 times, bounds, phase 6's render launches under ``launches_render``, phase
 14's launches under ``launches_methods``, phase 15's
 under ``launches_data_viewer``, phase 16's under
@@ -310,7 +323,7 @@ step of each configuration and each probe run, under
 continuation and 30k runs under ``launches_30k``, phase 21's under
 ``launches_tools``; P1-P3:
 launches in phase 12's run of the probes; phase 10b's errors under
-``projection``; phase 11's numbers under
+``projection``, phase 10c's numbers under ``adam``; phase 11's numbers under
 ``trainer``, phase 12's under ``probes``, phase 13's, K1 and K3 launches a
 view and a frame included, under ``backend``, phase 14's under
 ``methods``, phase 15's under ``data_viewer``, phase 16's under
@@ -463,7 +476,13 @@ from gstk_torch.train.checkpoint import (
     train_state_from_numpy,
     train_state_to_numpy,
 )
-from gstk_torch.train.optim import OptimizerConfig, adam_step
+from gstk_torch.train.adam_cuda import adam_fused
+from gstk_torch.train.optim import (
+    AdamState,
+    OptimizerConfig,
+    adam_step,
+    adam_step_plain,
+)
 from gstk_torch.train.step import init_train_state, make_train_step
 from gstk_torch.train.strategy import RefineState, refine
 from gstk_torch.train import trainer as trainer_mod
@@ -513,6 +532,11 @@ REFINE_STEP = 1000  # phase 10's refine: past warmup, densifying
 # phase 10(b): the projection kernels at the 30k operating point's lanes
 # (2^21, about 1.76M alive), SH degree 3, on phase 3's camera
 PROJ_LANES, PROJ_ALIVE = 1 << 21, 1_760_000
+# phase 10(c): AF on PROJ_LANES lanes of these rows (SH degree 3), the
+# steps it is held at, and the camera group's cameras
+ADAM_ROWS = {"means": (3,), "scales": (3,), "quats": (4,),
+             "features_dc": (3,), "features_rest": (15, 3), "opacities": (1,)}
+ADAM_STEPS, ADAM_CAMERAS = (0, 12_093, 29_998), 37
 # phase 13: gs-eval against the trainer's eval (PSNR rtol, SSIM atol)
 EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-4
 LPIPS_CROP = 128  # LPIPS on the card against the CPU on this square of a pair
@@ -963,7 +987,7 @@ def run(ckpt_dir: str) -> int:
     before = train_state_to_numpy(state)
     torch.cuda.synchronize()
     counters = (composite_tiles_fwd, composite_tiles_bwd, segment_broadcast,
-                segment_sum_sorted, project_fwd, project_bwd)
+                segment_sum_sorted, project_fwd, project_bwd, adam_fused)
     for f in counters:
         f.launches = 0
     state, metrics = step_fn(state, camera, gt)
@@ -974,6 +998,7 @@ def run(ckpt_dir: str) -> int:
     print(f"launches in one train step: {step_launches}")
     for name, n in step_launches.items():
         assert n >= 1, f"{name} not launched by the train step"
+    assert step_launches["adam_fused"] == 1, step_launches
     compare_steps(metrics, metrics_p, before, train_state_to_numpy(state),
                   train_state_to_numpy(state_p), OptimizerConfig())
 
@@ -1036,6 +1061,7 @@ def run(ckpt_dir: str) -> int:
     k4_bytes = rows * covered * 4 + n_seg * 4 + rows * n_seg * 4
     k4_ops = rows * covered
     proj = projection_phase(dev, camera, iters)
+    adam = adam_phase(dev, iters)
 
     trainer_numbers = trainer_phase(Path(ckpt_dir), counters)
     trainer_numbers["bench_refine_ms"] = statistics.median(bench_refine_ms)
@@ -1082,10 +1108,15 @@ def run(ckpt_dir: str) -> int:
          "gstk_torch/csrc/project_bwd.cu",
          "gstk_tpu/models/vanilla.py::splat_inputs (jax.grad, XLA-fused)",
          proj["bwd_err"]),
+        # no TPU kernel: XLA fuses gstk_tpu's Adam
+        ("adam_fused", adam["t"], adam["bytes"], None,
+         "gstk_torch/csrc/adam_fused.cu",
+         "gstk_tpu/train/optim.py::adam_step (XLA-fused)", 0.0),
     ):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        # the projection kernels' operations are not counted: a lane's few
-        # hundred flops take far less than its ~500 B at the HBM's rate
+        # the projection and Adam kernels' operations are not counted: a
+        # lane's few hundred flops take far less than its bytes at the
+        # HBM's rate
         ops_ms = 0.0 if ops is None else ops / F32_FLOP_PER_S * 1e3
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1103,7 +1134,7 @@ def run(ckpt_dir: str) -> int:
             entry["library_axis1_ms"] = t["library_axis1_ms"]
         if name in launches:
             entry["launches_render"] = launches[name]
-        # PF and PB are counted where a phase counts through `counters`;
+        # PF, PB and AF are counted where a phase counts through `counters`;
         # the subprocesses and the tools count K1-K4 alone (None)
         entry["launches_methods"] = {
             run: n.get(name) for run, n in method_numbers["launches"].items()}
@@ -1130,6 +1161,7 @@ def run(ckpt_dir: str) -> int:
     kernels.extend(probe_kernels)
     print(json.dumps({"kernels": kernels,
                       "projection": proj["numbers"],
+                      "adam": adam["numbers"],
                       "train_tile_lengths": tile_lengths,
                       "train_kept_warp_entries": warp_entries,
                       "k4_segments": k4_segments, "k4_glue": k4_glue,
@@ -1716,6 +1748,97 @@ def projection_phase(dev, camera, iters: int) -> dict:
                         "lane_errors": lane_err, "view_errors": view_err}}
 
 
+def adam_phase(dev, iters: int) -> dict:
+    """Phase 10(c): AF (``train/adam_cuda.py``) at the main path's lanes
+    and SH degree, a tenth of the lanes dead with NaN gradients, against
+    ``adam_step_plain`` on copies of one state: the parameters, moments
+    and count bit for bit after one step at each of ``ADAM_STEPS`` (the
+    count equal to the step), after one step with a norm clip through
+    ``adam_step`` (the scales computed on the device), and for the camera
+    group (``ADAM_CAMERAS`` x 6, no mask, CameraOptConfig's decay) at step
+    29,998 from counts 1 and 29,998; AF once a call, as counted. Then AF
+    timed (profiler, events) beside the plain step, with its bytes at the
+    HBM's rate: 28 B an element (p, g, m and v read; p, m and v
+    written)."""
+    phase("10c Adam kernel AF at 2^21 lanes vs adam_step_plain")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    draw = lambda shape, scale: scale * torch.randn(shape, generator=g,
+                                                    device=dev)
+
+    def state_of(rows, lanes):
+        shapes = {k: (lanes, *r) for k, r in rows.items()}
+        return ({k: draw(s, 1.0) for k, s in shapes.items()},
+                {k: draw(s, 1e-2) for k, s in shapes.items()},
+                {k: draw(s, 1e-3) for k, s in shapes.items()},
+                {k: draw(s, 1e-2).square() for k, s in shapes.items()})
+
+    def twins(fused, state, step, count, config, mask=None):
+        params, grads, mu, nu = state
+        runs = []
+        for fn in (fused, adam_step_plain):
+            p = {k: v.clone() for k, v in params.items()}
+            st = AdamState(
+                count=torch.tensor(count, dtype=torch.int32, device=dev),
+                mu={k: v.clone() for k, v in mu.items()},
+                nu={k: v.clone() for k, v in nu.items()})
+            adam_fused.launches = 0
+            st = fn(p, grads, st, torch.tensor(step, dtype=torch.int32,
+                                               device=dev), config, mask)
+            torch.cuda.synchronize()
+            runs.append((p, st, adam_fused.launches))
+        (p0, s0, n0), (p1, s1, n1) = runs
+        assert (n0, n1) == (1, 0), (n0, n1)
+        assert int(s0.count) == int(s1.count) == count + 1
+        for k in p1:
+            for what, a, b in (("p", p0, p1), ("m", s0.mu, s1.mu),
+                               ("v", s0.nu, s1.nu)):
+                diff = int((a[k] != b[k]).sum())
+                assert diff == 0, (
+                    f"AF {k} {what} at step {step}: {diff} elements differ, "
+                    f"the most by {float((a[k] - b[k]).abs().max())}")
+        return p0
+
+    scene = state_of(ADAM_ROWS, PROJ_LANES)
+    alive = torch.rand(PROJ_LANES, generator=g, device=dev) > 0.1
+    for v in scene[1].values():
+        v[~alive] = float("nan")
+    cfg = OptimizerConfig()
+    for step in ADAM_STEPS:
+        moved = twins(adam_fused, scene, step, step, cfg, alive)
+        assert torch.equal(moved["means"][~alive], scene[0]["means"][~alive])
+    twins(adam_step, scene, 12_093, 12_093, OptimizerConfig(max_norm=16.0),
+          alive)
+    cam = CameraOptConfig(mode="SO3xR3")
+    cam_cfg = OptimizerConfig(
+        lrs=(("camera_opt", cam.lr),),
+        extra_exp=(("camera_opt", cam.lr_final, cam.max_steps),))
+    camera_state = state_of({"camera_opt": (6,)}, ADAM_CAMERAS)
+    for count in (1, 29_998):
+        twins(adam_fused, camera_state, 29_998, count, cam_cfg)
+    print(f"AF bit for bit against adam_step_plain: {PROJ_LANES} lanes "
+          f"({int(alive.sum())} alive), steps {ADAM_STEPS}, a norm clip at "
+          f"12,093, the camera group from counts 1 and 29,998")
+
+    params, grads, mu, nu = scene
+    state = AdamState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                      mu=mu, nu=nu)
+    step = torch.tensor(12_093, dtype=torch.int32, device=dev)
+    af = lambda: adam_fused(params, grads, state, step, cfg, alive)
+    plain = lambda: adam_step_plain(params, grads, state, step, cfg, alive)
+    t = {**kernel_device_ms(af, "adam_fused_kernel", iters),
+         "wrapper_ms": event_ms(af, iters), "plain_ms": event_ms(plain, 5),
+         "library_ms": None}
+    elements = PROJ_LANES * sum(math.prod(r) for r in ADAM_ROWS.values())
+    nbytes = 28 * elements
+    print(f"AF {t}\nbytes {nbytes} ({elements} elements); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"t": t, "bytes": nbytes,
+            "numbers": {"lanes": PROJ_LANES, "alive": int(alive.sum()),
+                        "elements": elements, "steps": list(ADAM_STEPS),
+                        "bit_equal": True}}
+
+
 def probes_phase(k1_render, k1_ms, k1_bytes, k1_ops):
     """Phase 12: the probes' entry points with their launch counters reset
     just before (P1 at the tool's two shapes, P2 and P3 at n = 2^20), then
@@ -1868,7 +1991,8 @@ def methods_step(trainer, counters) -> dict:
     "plain"``), with phase 10's tolerances: sensor depth L1, the sparse term
     and the planar term (patches of ``PLANAR_PATCH``), SO3xR3 camera
     optimisation over the 21 train views; both steps draw the background and
-    the patch origins from generators of one seed. K1-K4 launch once; K2's
+    the patch origins from generators of one seed. K1-K4 launch once, AF
+    twice (the scene's Adam state and the camera group's); K2's
     depth column is nonzero, the camera group's gradient finite and
     nonzero, no moment non-finite. Then the step timed and traced beside
     the vanilla method's step from the same state, and ``torch.linalg.eigh``
@@ -1922,7 +2046,9 @@ def methods_step(trainer, counters) -> dict:
     torch.cuda.synchronize()
     print(f"launches in one co-gs + camera-opt step: {launches}")
     for name, n in launches.items():
-        assert n == 1, f"{name} launched {n} times by the co-gs step"
+        # AF steps the scene's Adam state and the camera group's
+        once = 2 if name == "adam_fused" else 1
+        assert n == once, f"{name} launched {n} times by the co-gs step"
     got, want = train_state_to_numpy(state_k), train_state_to_numpy(state_p)
     bad = [k for k, v in got.items()
            if v.dtype.kind == "f" and not np.isfinite(v).all()]

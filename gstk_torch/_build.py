@@ -30,15 +30,18 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "gstk_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# the projection kernels repeat PyTorch's elementwise ops one rounding at a
-# time (csrc/project_common.cuh), so no multiply and add is fused into an fma
+# the projection and Adam kernels repeat PyTorch's elementwise ops one
+# rounding at a time (csrc/project_common.cuh, csrc/adam_fused.cu), so no
+# multiply and add is fused into an fma
 SOURCE_FLAGS = {"project_fwd.cu": ["-fmad=false"],
-                "project_bwd.cu": ["-fmad=false"]}
+                "project_bwd.cu": ["-fmad=false"],
+                "adam_fused.cu": ["-fmad=false"]}
 LIB_NAME = "libgstk_torch.so"
 # the first load builds; a render thread (the viewer's) and the trainer may
 # both reach it, and the build's scratch directory is one per process
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()  # the wrappers' launch counters
+BACKENDS = ("auto", "plain")  # RasterizeConfig.backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +164,15 @@ def count_launch(wrapper, counter: str = "launches") -> None:
     an add and a write)."""
     with _COUNT_LOCK:
         setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def takes_kernels(device, backend: str) -> bool:
+    """The backend rule (``RasterizeConfig.backend``, which the train step
+    hands to Adam too): ``"auto"`` takes the CUDA kernels for CUDA tensors
+    (a ``torch.device``), ``"plain"`` the plain twins on any device."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    return backend == "auto" and device.type == "cuda"
 
 
 def check(name: str, err: int) -> None:

@@ -22,11 +22,12 @@ from typing import Dict, Optional
 
 import torch
 
+from gstk_torch._build import takes_kernels
 from gstk_torch.core.cameras import Camera, camera_matrices
 from gstk_torch.core.gaussians import GaussianScene
 from gstk_torch.ops import project_cuda
 from gstk_torch.ops.projection import project_gaussians
-from gstk_torch.ops.rasterize import BACKENDS, RasterizeConfig, rasterize
+from gstk_torch.ops.rasterize import RasterizeConfig, rasterize
 from gstk_torch.ops.sh import spherical_harmonics
 from gstk_torch.utils import losses
 from gstk_torch.utils.math import normalize
@@ -84,15 +85,6 @@ def _antialiased(config: VanillaConfig) -> bool:
     return config.rasterize_mode == "antialiased"
 
 
-def _takes_kernels(device: torch.device, backend: str) -> bool:
-    """The rasterizer's rule (:class:`RasterizeConfig`'s ``backend``):
-    ``"auto"`` takes the kernels for CUDA tensors, ``"plain"`` the plain
-    twin on any device."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-    return backend == "auto" and device.type == "cuda"
-
-
 def splat_inputs(
     scene: GaussianScene,
     camera: Camera,
@@ -122,7 +114,7 @@ def splat_inputs(
         alive = scene.alive
         if crop_box is not None:
             alive = alive & crop_box.within(scene.means.detach())
-        if _takes_kernels(scene.means.device, backend):
+        if takes_kernels(scene.means.device, backend):
             setting = project_cuda.Setting(
                 img_height, img_width, block_width, int(sh_degree),
                 not (sh_degree > 0 or config.sh_degree > 0),

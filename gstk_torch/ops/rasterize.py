@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from gstk_torch._build import BACKENDS
 from gstk_torch.ops.binning import bin_gaussians, expansion_positions
 from gstk_torch.ops.projection import tight_extents, tile_bbox
 from gstk_torch.ops.raster_cuda import (
@@ -44,8 +45,6 @@ FORWARD_ONLY_MESSAGE = (
     "RasterizeConfig.forward_only=True skips the expansion permutation the "
     "backward reduction needs; use forward_only=False for training."
 )
-
-BACKENDS = ("auto", "plain")
 
 
 @dataclasses.dataclass(frozen=True)

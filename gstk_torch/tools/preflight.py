@@ -10,9 +10,10 @@ twin. So:
   card computes on the hot path: the CUDA sources and header
   (``gstk_torch/csrc/*.cu*``), their build (``_build.py``), the kernels'
   wrappers (``ops/raster_cuda.py``, ``ops/segment_kernel.py``,
-  ``ops/project_cuda.py``), the code around them (``ops/binning.py``,
-  ``ops/projection.py``, ``ops/rasterize.py``, ``ops/sh.py``,
-  ``models/vanilla.py``) and the losses (``utils/losses.py``);
+  ``ops/project_cuda.py``, ``train/adam_cuda.py``), the code around them
+  (``ops/binning.py``, ``ops/projection.py``, ``ops/rasterize.py``,
+  ``ops/sh.py``, ``models/vanilla.py``, ``train/optim.py``) and the losses
+  (``utils/losses.py``);
 * a stamp, ``.preflight_stamp_torch.json`` at the repo's root (untracked),
   records the hash when a card parity run last passed: ``chip_smoke.py``
   writes it when every phase has passed, and ``run`` when
@@ -56,6 +57,8 @@ KERNEL_FILES = [
     "gstk_torch/ops/rasterize.py",
     "gstk_torch/ops/segment_kernel.py",
     "gstk_torch/ops/sh.py",
+    "gstk_torch/train/adam_cuda.py",
+    "gstk_torch/train/optim.py",
     "gstk_torch/utils/losses.py",
 ]
 SKIP_ENV = "GSTK_SKIP_PREFLIGHT"

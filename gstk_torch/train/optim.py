@@ -8,6 +8,11 @@ step's device. Default learning rates are the reference method config:
 means 1.6e-4 (exponential decay to 1.6e-6 over 30k steps), features_dc
 2.5e-3, features_rest 1.25e-4, opacities 5e-2, scales 5e-3, quats 1e-3.
 
+On the card :func:`adam_step` is one launch of a CUDA kernel for all the
+groups (:mod:`gstk_torch.train.adam_cuda`), which computes the rates from
+the device's step; :func:`adam_step_plain` is its twin, the path on the
+CPU and under the ``"plain"`` backend.
+
 Unlike gstk_tpu's pure functions, :func:`adam_step`,
 :func:`zero_moments_at` and :func:`zero_moments_group` update the
 parameters and moments in place: the state is C-sized per group, and a copy
@@ -18,9 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from gstk_torch._build import takes_kernels
+from gstk_torch.train import adam_cuda
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -127,13 +135,21 @@ class OptimizerConfig:
     def lr_for(self, group: str) -> float:
         return dict(self.lrs).get(group, 1e-3)
 
-    def schedule_for(self, group: str) -> Schedule:
-        base = self.lr_for(group)
+    def decay_for(self, group: str) -> Optional[Tuple[float, int]]:
+        """``(lr_final, max_steps)`` of the group's exponential decay from
+        :meth:`lr_for`, None when its rate is constant."""
         if group == "means":
-            return exponential_decay(base, self.means_lr_final, self.means_max_steps)
+            return self.means_lr_final, self.means_max_steps
         for name, lr_final, max_steps in self.extra_exp:
             if name == group:
-                return exponential_decay(base, lr_final, max_steps)
+                return lr_final, max_steps
+        return None
+
+    def schedule_for(self, group: str) -> Schedule:
+        base = self.lr_for(group)
+        decay = self.decay_for(group)
+        if decay is not None:
+            return exponential_decay(base, *decay)
         return lambda step: _f32(base, step)
 
 
@@ -154,6 +170,19 @@ def _lanes(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (like.ndim - mask.ndim))
 
 
+def _masked(g: torch.Tensor, update_mask: Optional[torch.Tensor]):
+    if update_mask is None:
+        return g
+    return torch.where(_lanes(update_mask, g), g, 0.0)
+
+
+def _clip_scale(g: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that brings ``g``'s norm down to ``max_norm``, at most 1
+    (a 0-d tensor on ``g``'s device)."""
+    norm = torch.linalg.norm(g)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
 @torch.no_grad()
 def adam_step(
     params: Params,
@@ -162,6 +191,7 @@ def adam_step(
     step: torch.Tensor,
     config: OptimizerConfig = OptimizerConfig(),
     update_mask: Optional[torch.Tensor] = None,
+    backend: str = "auto",
 ) -> AdamState:
     """One Adam step (torch semantics) on every group of ``params``, in
     place: the parameters and the moments of ``state`` are updated where
@@ -169,20 +199,44 @@ def adam_step(
 
     ``update_mask`` (C,) freezes dead capacity lanes: their gradient and
     update are zeroed, so their parameters stay put while their moments
-    decay. ``step`` drives the learning-rate schedules."""
+    decay. ``step`` drives the learning-rate schedules. ``backend`` is the
+    rasterizer's (``RasterizeConfig.backend``): where it takes the kernels
+    (:func:`gstk_torch._build.takes_kernels`: CUDA tensors under
+    ``"auto"``), one launch of :func:`~gstk_torch.train.adam_cuda.adam_fused`
+    steps every group, else :func:`adam_step_plain`, its twin, does. A
+    norm clip's scales are then computed on the device, a group each."""
+    device = next(iter(params.values())).device
+    if not takes_kernels(device, backend):
+        return adam_step_plain(params, grads, state, step, config,
+                               update_mask)
+    clip = None
+    if config.max_norm is not None:
+        clip = torch.stack([
+            _clip_scale(_masked(grads[k], update_mask), config.max_norm)
+            for k in params])
+    return adam_cuda.adam_fused(params, grads, state, step, config,
+                                update_mask, clip)
+
+
+@torch.no_grad()
+def adam_step_plain(
+    params: Params,
+    grads: Params,
+    state: AdamState,
+    step: torch.Tensor,
+    config: OptimizerConfig = OptimizerConfig(),
+    update_mask: Optional[torch.Tensor] = None,
+) -> AdamState:
+    """:func:`adam_step` in plain PyTorch ops, on any device: the twin of
+    the fused kernel."""
     count = state.count + 1
     count_f = count.to(torch.float32)
     c1 = 1.0 - config.b1 ** count_f
     c2 = 1.0 - config.b2 ** count_f
     for name, p in params.items():
-        g = grads[name]
-        if update_mask is not None:
-            g = torch.where(_lanes(update_mask, g), g, 0.0)
+        g = _masked(grads[name], update_mask)
         if config.max_norm is not None:
-            norm = torch.linalg.norm(g)
-            g = g * torch.clamp(
-                config.max_norm / torch.clamp(norm, min=1e-12), max=1.0
-            )
+            g = g * _clip_scale(g, config.max_norm)
         mu, nu = state.mu[name], state.nu[name]
         mu.copy_(config.b1 * mu + (1.0 - config.b1) * g)
         nu.copy_(config.b2 * nu + (1.0 - config.b2) * (g * g))

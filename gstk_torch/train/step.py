@@ -321,13 +321,14 @@ def make_train_step(
                  for k, v in grads.items()}
         state.adam = adam_step(
             state.scene.params(), grads, state.adam, state.step, optim_cfg,
-            update_mask=state.scene.alive,
+            update_mask=state.scene.alive, backend=raster_cfg.backend,
         )
         if use_cam_opt:
             with timer("camera"):
                 state.cam_adam = adam_step(
                     {"camera_opt": state.cam_adjust}, {"camera_opt": cam_grad},
                     state.cam_adam, state.step, cam_optim_cfg,
+                    backend=raster_cfg.backend,
                 )
         state.refine = refine
         state.step = state.step + 1

@@ -1222,3 +1222,218 @@ def test_cogs_spans_hold_their_events(cuda):
     summed = [e for e in tr.device if e.get("cat") == "kernel"
               and "view_grad_sum_kernel" in e["name"]]
     assert views == len(summed) == 2
+
+
+ADAM_SHAPES = {"means": (3,), "scales": (3,), "quats": (4,),
+               "features_dc": (3,), "features_rest": (15, 3),
+               "opacities": (1,)}  # a lane's rows at SH degree 3
+
+
+def _adam_case(cuda, lanes, steps, seed=0):
+    """An SH-3 scene's groups of ``lanes`` lanes, a tenth dead, with moments
+    as after earlier steps, and one gradient a step: NaN on dead lanes
+    (zeroed by both paths)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    draw = lambda shape, scale: scale * torch.randn(
+        shape, generator=g, device=cuda)
+    shapes = {k: (lanes, *s) for k, s in ADAM_SHAPES.items()}
+    params = {k: draw(s, 1.0) for k, s in shapes.items()}
+    mu = {k: draw(s, 1e-3) for k, s in shapes.items()}
+    nu = {k: draw(s, 1e-2).square() for k, s in shapes.items()}
+    alive = torch.rand(lanes, generator=g, device=cuda) > 0.1
+    grads = []
+    for _ in range(steps):
+        gs = {k: draw(s, 1e-2) for k, s in shapes.items()}
+        for v in gs.values():
+            v[~alive] = float("nan")
+        grads.append(gs)
+    return params, mu, nu, alive, grads
+
+
+def _adam_twins(params, mu, nu, grads, first_step, count, config,
+                mask=None, fused=None):
+    """The fused kernel (``fused``, else adam_fused itself) and
+    adam_step_plain, each from its own copy of the state, one step a
+    gradient from ``first_step``; (params, state) each, and the kernel's
+    launches."""
+    from gstk_torch.train import adam_cuda, optim
+
+    device = next(iter(params.values())).device
+    steps = [torch.tensor(first_step + i, dtype=torch.int32, device=device)
+             for i in range(len(grads))]
+    runs, launches = [], None
+    for fn in (fused or adam_cuda.adam_fused, optim.adam_step_plain):
+        p = {k: v.clone() for k, v in params.items()}
+        state = optim.AdamState(
+            count=torch.tensor(count, dtype=torch.int32, device=device),
+            mu={k: v.clone() for k, v in mu.items()},
+            nu={k: v.clone() for k, v in nu.items()})
+        before = adam_cuda.adam_fused.launches
+        for step, gs in zip(steps, grads):
+            state = fn(p, gs, state, step, config, mask)
+        if launches is None:
+            launches = adam_cuda.adam_fused.launches - before
+        runs.append((p, state))
+    return runs, launches
+
+
+def _assert_same_bits(runs):
+    (p0, s0), (p1, s1) = runs
+    assert torch.equal(s0.count, s1.count)
+    for k in p1:
+        for what, a, b in (("p", p0, p1), ("m", s0.mu, s1.mu),
+                           ("v", s0.nu, s1.nu)):
+            diff = (a[k] != b[k]) & ~(a[k].isnan() & b[k].isnan())
+            assert not diff.any(), (
+                f"{k} {what}: {int(diff.sum())} elements differ, the most "
+                f"by {float((a[k] - b[k]).abs().max())}")
+
+
+ADAM_CASES = [(1 << 21, 0, "aligned"), (1 << 21, 12_093, "aligned"),
+              (1 << 21, 29_998, "aligned"), (1 << 21, 12_093, "frozen"),
+              (1001, 29_998, "unaligned"), (1 << 21, 12_093, "clipped")]
+
+
+@pytest.mark.parametrize("case", ADAM_CASES,
+                         ids=[f"{a}-{b}-{c}" for a, b, c in ADAM_CASES])
+def test_fused_adam_equals_plain_bits(cuda, case):
+    """Four steps of the fused kernel and of adam_step_plain from the same
+    state: p, m, v and the count bit for bit. At 2^21 lanes from step and
+    count 0 (the largest bias corrections), 12,093 and 29,998 (across the
+    means schedule's end at 30,000); ``frozen``: the means' gradient zero,
+    as the train step freezes a group, so they move by their momentum
+    alone; ``unaligned``: 1,001 lanes (groups that end inside a 4-element
+    unit) with gradients that are views at a 4-byte offset into one buffer,
+    which the kernel reads element by element; ``clipped``: a norm clip of
+    16 through adam_step, which scales every group but the opacities
+    (norm about 14) on the device."""
+    from gstk_torch.train.optim import OptimizerConfig, adam_step
+
+    lanes, first, layout = case
+    params, mu, nu, alive, grads = _adam_case(cuda, lanes, 4)
+    if layout == "frozen":
+        for gs in grads:
+            gs["means"] = torch.zeros_like(gs["means"])
+    if layout == "unaligned":
+        for i, gs in enumerate(grads):
+            flat = torch.cat([torch.zeros(1, device=cuda)]
+                             + [v.reshape(-1) for v in gs.values()])
+            parts = torch.split(flat[1:], [v.numel() for v in gs.values()])
+            grads[i] = {k: x.view(v.shape)
+                        for (k, v), x in zip(gs.items(), parts)}
+            assert grads[i]["means"].data_ptr() % 16 != 0
+    clipped = layout == "clipped"
+    runs, launches = _adam_twins(
+        params, mu, nu, grads, first, first,
+        OptimizerConfig(max_norm=16.0 if clipped else None), alive,
+        adam_step if clipped else None)
+    assert launches == 4
+    _assert_same_bits(runs)
+    p = runs[0][0]
+    assert torch.equal(p["means"][~alive], params["means"][~alive])
+    if layout == "frozen":
+        moved = (p["means"] != params["means"]).any(-1)
+        assert moved[alive].float().mean() > 0.99
+
+
+def test_fused_adam_camera_group_equals_plain_bits(cuda):
+    """The camera group as the train step steps it: (num_cameras, 6), no
+    mask, the exponential decay of CameraOptConfig's defaults, across its
+    end; p, m, v bit for bit over four steps, from count 1 and from 29,998."""
+    from gstk_torch.core.camera_opt import CameraOptConfig
+    from gstk_torch.train.optim import OptimizerConfig
+
+    cam = CameraOptConfig(mode="SO3xR3")
+    cfg = OptimizerConfig(
+        lrs=(("camera_opt", cam.lr),),
+        extra_exp=(("camera_opt", cam.lr_final, cam.max_steps),))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    draw = lambda scale: {"camera_opt": scale * torch.randn(
+        (37, 6), generator=g, device=cuda)}
+    params, mu = draw(1e-2), draw(1e-3)
+    nu = {"camera_opt": draw(1e-2)["camera_opt"].square()}
+    grads = [draw(1.0) for _ in range(4)]
+    for first, count in ((29_998, 1), (29_998, 29_998), (5, 5)):
+        runs, launches = _adam_twins(params, mu, nu, grads, first, count, cfg)
+        assert launches == 4
+        _assert_same_bits(runs)
+
+
+def test_fused_adam_makes_no_stream_sync(cuda):
+    """adam_step's fused path (a scene with its mask, the same with a norm
+    clip, then the camera group) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no sync. The plain twin,
+    which uploads its rates, raises there."""
+    from gstk_torch.train import optim
+
+    params, mu, nu, alive, grads = _adam_case(cuda, 1 << 16, 2)
+    state = optim.AdamState(
+        count=torch.zeros((), dtype=torch.int32, device=cuda), mu=mu, nu=nu)
+    cam = {"camera_opt": torch.zeros((4, 6), device=cuda)}
+    cam_state = optim.init_adam(cam)
+    cam_cfg = optim.OptimizerConfig(lrs=(("camera_opt", 1e-3),),
+                                    extra_exp=(("camera_opt", 5e-5, 30_000),))
+    step = torch.full((), 12_000, dtype=torch.int32, device=cuda)
+    cam_grad = {"camera_opt": torch.ones((4, 6), device=cuda)}
+    state = optim.adam_step(params, grads[0], state, step,
+                            update_mask=alive)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = optim.adam_step(params, grads[1], state, step,
+                                update_mask=alive)
+        state = optim.adam_step(params, grads[1], state, step,
+                                optim.OptimizerConfig(max_norm=1.0),
+                                update_mask=alive)
+        cam_state = optim.adam_step(cam, cam_grad, cam_state, step, cam_cfg)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            optim.adam_step_plain(cam, cam_grad, cam_state, step, cam_cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(state.count) == 3 and int(cam_state.count) == 1
+
+
+@pytest.mark.parametrize("camera", [False, True])
+def test_fused_adam_launches_match_the_trace(cuda, camera):
+    """Two traced train steps: ``adam_fused.launches`` moves by the
+    ``adam_fused_kernel`` events the trace holds, one an Adam state a step
+    (two with camera optimisation), charged to ``gstk.update`` (the camera
+    group's to ``gstk.camera``), and no trace event is lost."""
+    from gstk_torch.core.camera_opt import CameraOptConfig
+    from gstk_torch.models.vanilla import VanillaConfig
+    from gstk_torch.ops.rasterize import RasterizeConfig
+    from gstk_torch.train import adam_cuda
+    from gstk_torch.train import step as tstep
+    from gstk_torch.train.optim import OptimizerConfig
+
+    from gsbench import program
+    from gsbench import trace as gtrace
+
+    scene, view = _projection_case(cuda, n=1 << 14)
+    fn = tstep.make_train_step(
+        VanillaConfig(sh_degree=3), RasterizeConfig(isect_capacity=1 << 20),
+        OptimizerConfig(), PROJ_H, PROJ_W, 3,
+        camera_opt=CameraOptConfig(mode="SO3xR3") if camera else None)
+    state = tstep.init_train_state(scene, num_cameras=2 if camera else None)
+    state.step.fill_(12_000)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gt = torch.rand(PROJ_H, PROJ_W, 3, generator=gen, device=cuda)
+    index = torch.ones((), dtype=torch.int32, device=cuda)
+    kw = dict(camera_index=index) if camera else {}
+
+    def step():
+        fn(state, view, gt, gen, **kw)
+
+    step()
+    before = adam_cuda.adam_fused.launches
+    tr = gtrace.record(lambda: [step() for _ in range(2)], cuda)
+    made = adam_cuda.adam_fused.launches - before
+    assert gtrace.check(tr, True) == []
+    evs = [e for e in tr.device if e.get("cat") == "kernel"
+           and "adam_fused_kernel" in e["name"]]
+    assert made == len(evs) == (4 if camera else 2)
+    layers = sorted(program.of(tr).layer_of(e) for e in evs)
+    assert layers == (["camera", "camera", "update", "update"] if camera
+                      else ["update", "update"])
+    assert int(state.adam.count) == 3

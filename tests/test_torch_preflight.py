@@ -45,7 +45,9 @@ def test_hash_covers_every_kernel_file():
                 "gstk_torch/ops/segment_kernel.py", "gstk_torch/ops/binning.py",
                 "gstk_torch/ops/projection.py", "gstk_torch/ops/rasterize.py",
                 "gstk_torch/utils/losses.py", "gstk_torch/ops/project_cuda.py",
-                "gstk_torch/ops/sh.py", "gstk_torch/models/vanilla.py"):
+                "gstk_torch/ops/sh.py", "gstk_torch/models/vanilla.py",
+                "gstk_torch/csrc/adam_fused.cu", "gstk_torch/train/adam_cuda.py",
+                "gstk_torch/train/optim.py"):
         assert rel in files and (REPO / rel).exists()
     assert files == sorted(files)
 
@@ -55,7 +57,10 @@ def test_hash_covers_every_kernel_file():
                                     "gstk_torch/utils/losses.py",
                                     "gstk_torch/csrc/project_bwd.cu",
                                     "gstk_torch/ops/project_cuda.py",
-                                    "gstk_torch/models/vanilla.py"])
+                                    "gstk_torch/models/vanilla.py",
+                                    "gstk_torch/csrc/adam_fused.cu",
+                                    "gstk_torch/train/adam_cuda.py",
+                                    "gstk_torch/train/optim.py"])
 def test_hash_stable_and_sensitive(fake_repo, monkeypatch, edited):
     monkeypatch.setattr(preflight, "REPO", REPO)
     h1 = preflight.kernel_hash()

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from gstk_tpu.core import cameras as jcam
+from gstk_torch._build import takes_kernels
 from gstk_torch.core import cameras as tcam
 from gstk_torch.core import gaussians as tgs
 from gstk_torch.core.scene_box import SceneBox
@@ -64,9 +65,9 @@ def test_dispatch_rule(case):
         case, "plain" if case.endswith("_plain") else "auto")
     if case == "unknown":
         with pytest.raises(ValueError, match="fused"):
-            tvan._takes_kernels(device, backend)
+            takes_kernels(device, backend)
         return
-    assert tvan._takes_kernels(device, backend) == (case == "cuda")
+    assert takes_kernels(device, backend) == (case == "cuda")
 
 
 @pytest.mark.parametrize("case", ["plain", "crop_box", "camera_grad"])
