@@ -167,9 +167,10 @@ def count_launch(wrapper, counter: str = "launches") -> None:
 
 
 def takes_kernels(device, backend: str) -> bool:
-    """The backend rule (``RasterizeConfig.backend``, which the train step
-    hands to Adam too): ``"auto"`` takes the CUDA kernels for CUDA tensors
-    (a ``torch.device``), ``"plain"`` the plain twins on any device."""
+    """The one rule between a kernel and its plain twin, asked by the op
+    that owns both (``RasterizeConfig.backend``, which the train step hands
+    to Adam too): ``"auto"`` takes the CUDA kernels for CUDA tensors (a
+    ``torch.device``), ``"plain"`` the plain twins on any device."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     return backend == "auto" and device.type == "cuda"

@@ -6,7 +6,8 @@ Static capacity, as in gstk_tpu, so the output is identical to it:
   1. ``num_tiles_hit`` is cumsum'ed; Gaussian g owns the slots
      ``[cum[g] - count[g], cum[g])``. Slot j's owner is
      ``#{g: cum[g] <= j}`` — kernel K3 (:mod:`gstk_torch.ops.segment_kernel`)
-     with a column of ones; slots past the total get the sentinel id N.
+     with a column of ones (or its twin: ``segment_backend``); slots past
+     the total get the sentinel id N.
   2. Each slot gathers its owner's tile bbox, offset and depth by id and
      walks the bbox row-major to its tile.
   3. One stable ``torch.sort`` on the int64 key ``tile << 32 | depth_bits``
@@ -34,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from gstk_torch._build import takes_kernels
 from gstk_torch.ops.projection import tile_bbox
 from gstk_torch.ops.segment_kernel import (
     segment_broadcast,
@@ -69,12 +71,10 @@ def bin_gaussians(
     xys/depths: outputs of ``project_gaussians``. radii: per-Gaussian
     footprint half-extents, (N,) square radii or (N, 2) per-axis tight
     extents; ``num_tiles_hit`` must equal the resulting bbox areas.
-    tile_bounds: (tiles_x, tiles_y). segment_backend: "auto" (kernel K3 for
-    CUDA tensors, its plain twin for CPU tensors) or "plain" (the twin on
-    any device). need_expansion=False leaves ``expansion_ids`` out (None),
-    for callers that never differentiate."""
-    if segment_backend not in ("auto", "plain"):
-        raise ValueError(f"segment_backend {segment_backend!r}")
+    tile_bounds: (tiles_x, tiles_y). segment_backend: the rasterizer's
+    backend, which picks kernel K3 or its plain twin
+    (:func:`gstk_torch._build.takes_kernels`). need_expansion=False leaves
+    ``expansion_ids`` out (None), for callers that never differentiate."""
     device = xys.device
     n = xys.shape[0]
     tiles_x = tile_bounds[0]
@@ -83,9 +83,8 @@ def bin_gaussians(
     cum = torch.cumsum(counts, 0)
     total = cum[-1] if n > 0 else torch.zeros((), dtype=torch.int64, device=device)
 
-    broadcast = (
-        segment_broadcast if segment_backend == "auto" else segment_broadcast_plain
-    )
+    broadcast = (segment_broadcast if takes_kernels(device, segment_backend)
+                 else segment_broadcast_plain)
     gid = broadcast(
         torch.clamp(cum, max=capacity).to(torch.int32),
         [torch.ones(n, dtype=torch.int32, device=device)],

@@ -15,8 +15,9 @@ and returns per-intersection gradients ``(cap, 6 + ch)`` in the order
 per-Gaussian sums are :func:`gstk_torch.ops.segment_kernel.segment_sum_sorted`'s.
 
 :func:`composite_tiles_fwd` and :func:`composite_tiles_bwd` launch the CUDA
-kernels (``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``) for CUDA
-tensors and run their plain twins only for CPU tensors. The kernels gather
+kernels (``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``) on CUDA
+tensors only; :mod:`gstk_torch.ops.rasterize` chooses them or the twins
+(:func:`gstk_torch._build.takes_kernels`). The kernels gather
 attributes by Gaussian id from one packed 48-B record per Gaussian
 (:func:`pack_records`), which a caller that runs both kernels builds once and
 passes to both; the TPU's packed 128-lane attribute tables, bf16 splits,
@@ -321,26 +322,20 @@ def composite_tiles_fwd(
     tile_bounds: Tuple[int, int], block_width: int = 16, *,
     records: Optional[torch.Tensor] = None,
 ):
-    """Composite every tile: kernel K1 on CUDA tensors, the plain twin on
-    CPU tensors.
+    """Composite every tile with kernel K1 (CUDA tensors only; the twin is
+    :func:`composite_tiles_fwd_plain`).
 
     xys (N,2), conics (N,3), opacities (N,), colors (N,ch) float32;
     gaussian_ids (cap,) int32 sorted by (tile, depth) with sentinel N;
     tile_bins (T,2) int32 ranges. Returns acc (T,256,ch), final_t (T,256).
     The kernel takes 16x16 tiles and ch in ``KERNEL_CHANNELS``, and reads
     the attributes from ``records`` (:func:`pack_records` of the same four
-    arrays), built here when None; the twin ignores it."""
+    arrays), built here when None."""
     _check(xys, conics, opacities, colors, gaussian_ids, tile_bins,
            tile_bounds)
     device = xys.device
-    if device.type == "cpu":
-        acc, final_t, _ = composite_tiles_fwd_plain(
-            xys, conics, opacities, colors, gaussian_ids, tile_bins,
-            tile_bounds, block_width,
-        )
-        return acc, final_t
     if device.type != "cuda":
-        raise ValueError(f"composite_tiles_fwd: unsupported device {device}")
+        raise ValueError(f"composite_tiles_fwd: takes CUDA tensors, got {device}")
     ch = colors.shape[1]
     if block_width != KERNEL_BLOCK_WIDTH or ch not in KERNEL_CHANNELS:
         raise ValueError(
@@ -376,8 +371,8 @@ def composite_tiles_bwd(
     g_acc, g_final_t, tile_bounds: Tuple[int, int], block_width: int = 16, *,
     records: Optional[torch.Tensor] = None,
 ):
-    """Per-intersection compositing gradients: kernel K2 on CUDA tensors,
-    the plain twin on CPU tensors.
+    """Per-intersection compositing gradients with kernel K2 (CUDA tensors
+    only; the twin is :func:`composite_tiles_bwd_plain`).
 
     The forward's inputs, its outputs ``acc (T,256,ch)`` and ``final_t
     (T,256)``, and their cotangents ``g_acc`` and ``g_final_t``. Returns
@@ -391,13 +386,8 @@ def composite_tiles_bwd(
     _check_planes(colors, tile_bounds, block_width, acc, final_t, g_acc,
                   g_final_t)
     device = xys.device
-    if device.type == "cpu":
-        return composite_tiles_bwd_plain(
-            xys, conics, opacities, colors, gaussian_ids, tile_bins, acc,
-            final_t, g_acc, g_final_t, tile_bounds, block_width,
-        )[0]
     if device.type != "cuda":
-        raise ValueError(f"composite_tiles_bwd: unsupported device {device}")
+        raise ValueError(f"composite_tiles_bwd: takes CUDA tensors, got {device}")
     ch = colors.shape[1]
     if block_width != KERNEL_BLOCK_WIDTH or ch not in KERNEL_CHANNELS:
         raise ValueError(

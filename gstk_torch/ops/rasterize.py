@@ -15,6 +15,9 @@ kernel K4 (:func:`gstk_torch.ops.segment_kernel.segment_sum_sorted`) sums
 each Gaussian's contiguous segment. Gradients flow to xys, conics, colors,
 opacities and the background; binning is not differentiated, and gradients
 add across bands through autograd.
+
+Each band chooses once (:func:`gstk_torch._build.takes_kernels`) between
+K1, K2 and K4 and their plain twins, which walk ``chunk_size`` entries a step.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from gstk_torch._build import BACKENDS
+from gstk_torch._build import takes_kernels
 from gstk_torch.ops.binning import bin_gaussians, expansion_positions
 from gstk_torch.ops.projection import tight_extents, tile_bbox
 from gstk_torch.ops.raster_cuda import (
@@ -56,7 +59,7 @@ class RasterizeConfig:
     and gathers attributes by Gaussian id."""
 
     block_width: int = 16  # tile side in pixels
-    chunk_size: int = 32  # entries per step of the plain compositing loop
+    chunk_size: int = 32  # entries per step of the plain compositing twins
     isect_capacity: int = 1 << 19  # static intersection buffer length per band
     # "auto": the CUDA kernels for CUDA tensors, their plain twins for CPU
     # tensors; "plain": the plain twins on any device (the reference path)
@@ -147,8 +150,6 @@ def rasterize(
     ``num_tiles_hit`` is accepted for API compatibility; tile footprints are
     recomputed per band. Gradients flow to xys, conics, colors, opacities
     and background."""
-    if config.backend not in BACKENDS:
-        raise ValueError(f"RasterizeConfig.backend {config.backend!r} not in {BACKENDS}")
     with timer("raster"):
         bw = config.block_width
         tiles_x = (img_width + bw - 1) // bw
@@ -188,29 +189,28 @@ def rasterize(
 class _CompositeTiles(torch.autograd.Function):
     """Tile compositing with its backward pass.
 
-    Forward: kernel K1 (or its twin). Backward: K2's per-intersection
-    gradients, gathered into expansion order by ``positions`` and summed per
-    Gaussian by K4 over the segments ``hi = min(cumsum(counts), cap)``.
-    The kernels read one packed record per Gaussian, built once here and
-    kept for K2. ``positions`` is None for a forward-only rasterize, whose
-    backward raises."""
+    Forward: kernel K1. Backward: K2's per-intersection gradients, gathered
+    into expansion order by ``positions`` and summed per Gaussian by K4 over
+    the segments ``hi = min(cumsum(counts), cap)``. The kernels read one
+    packed record per Gaussian, built once here and kept for K2; without
+    ``kernels`` their twins run at ``chunk``. ``positions`` is None for a
+    forward-only rasterize, whose backward raises."""
 
     @staticmethod
     def forward(ctx, xys, conics, colors, opacities, gaussian_ids, tile_bins,
-                positions, counts, tile_bounds, block_width, plain, chunk):
+                positions, counts, tile_bounds, block_width, kernels, chunk):
         args = (xys, conics, opacities, colors, gaussian_ids, tile_bins,
                 tile_bounds, block_width)
         records = None
-        if plain:
-            acc, final_t, _ = composite_tiles_fwd_plain(*args, chunk=chunk)
-        else:
-            if xys.is_cuda:
-                records = pack_records(xys, conics, opacities, colors)
+        if kernels:
+            records = pack_records(xys, conics, opacities, colors)
             acc, final_t = composite_tiles_fwd(*args, records=records)
+        else:
+            acc, final_t, _ = composite_tiles_fwd_plain(*args, chunk=chunk)
         ctx.save_for_backward(xys, conics, colors, opacities, gaussian_ids,
                               tile_bins, positions, counts, acc, final_t,
                               records)
-        ctx.geometry = (tile_bounds, block_width, plain, chunk)
+        ctx.geometry = (tile_bounds, block_width, kernels, chunk)
         return acc, final_t
 
     @staticmethod
@@ -218,7 +218,7 @@ class _CompositeTiles(torch.autograd.Function):
     def backward(ctx, g_acc, g_final_t):
         (xys, conics, colors, opacities, gaussian_ids, tile_bins, positions,
          counts, acc, final_t, records) = ctx.saved_tensors
-        tile_bounds, block_width, plain, chunk = ctx.geometry
+        tile_bounds, block_width, kernels, chunk = ctx.geometry
         if positions is None:
             raise ValueError(FORWARD_ONLY_MESSAGE)
         if g_acc is None:
@@ -228,12 +228,12 @@ class _CompositeTiles(torch.autograd.Function):
         args = (xys, conics, opacities, colors, gaussian_ids, tile_bins, acc,
                 final_t, g_acc.contiguous(), g_final_t.contiguous(),
                 tile_bounds, block_width)
-        if plain:
-            gout, _ = composite_tiles_bwd_plain(*args, chunk=chunk)
-            segment_sum = segment_sum_sorted_plain
-        else:
+        if kernels:
             gout = composite_tiles_bwd(*args, records=records)
             segment_sum = segment_sum_sorted
+        else:
+            gout, _ = composite_tiles_bwd_plain(*args, chunk=chunk)
+            segment_sum = segment_sum_sorted_plain
         # rows in expansion (Gaussian-major) order: each Gaussian's entries
         # are then one contiguous segment ending at its clipped count cumsum;
         # K4 reads the gathered rows entry-major, as they are
@@ -252,6 +252,7 @@ def _rasterize_band(
     """Bin + composite one horizontal band (the whole image when bands=1).
     ``xys`` are band-local; ``ext`` the (N, 2) footprint half-extents;
     ``counts`` the band-clipped per-Gaussian tile counts."""
+    kernels = takes_kernels(xys.device, config.backend)
     bw = config.block_width
     tile_bounds = ((img_width + bw - 1) // bw, (img_height + bw - 1) // bw)
     isect = bin_gaussians(
@@ -262,8 +263,7 @@ def _rasterize_band(
     positions = None if config.forward_only else expansion_positions(isect)
     acc, final_t = _CompositeTiles.apply(
         xys, conics, colors, opacities, isect.gaussian_ids, isect.tile_bins,
-        positions, counts, tile_bounds, bw, config.backend == "plain",
-        config.chunk_size,
+        positions, counts, tile_bounds, bw, kernels, config.chunk_size,
     )
     img = _tiles_to_image(acc, tile_bounds, bw, img_height, img_width)
     final_t_img = _tiles_to_image(

@@ -16,16 +16,17 @@ reduction over contiguous segments with sorted ends ``hi``:
     out[c, g] = sum_{hi[g-1] <= j < hi[g]} vals[c, j]   (hi[-1] = 0)
 
 Each wrapper launches its CUDA kernel (``csrc/segment_broadcast.cu``,
-``csrc/segment_sum.cu``) for CUDA tensors and runs its plain twin only for
-CPU tensors. The TPU versions' MXU limb matmuls, masked MXU contractions,
-128-lane tables and chunk prefixes are TPU workarounds and are not carried
-over. A CTA of K3 owns a run of 64 boundaries and writes the slots they
-span, counting each slot against the run in shared memory; the slots past
-the last boundary take the last prefix with no search. K4 reads the values
-entry-major, (Np, rows) with each entry's rows contiguous, the order the
-backward's per-intersection rows have once gathered by expansion position;
-it stages a run of Gaussians' contiguous span in shared memory and sums
-each segment in one thread (a warp for long segments).
+``csrc/segment_sum.cu``) on CUDA tensors only; binning (K3) and rasterize
+(K4) choose it or its ``*_plain`` twin (``_build.takes_kernels``). The TPU
+versions' MXU limb matmuls, masked MXU contractions, 128-lane tables and
+chunk prefixes are TPU workarounds and are not carried over. A CTA of K3
+owns a run of 64 boundaries and writes the slots they span, counting each
+slot against the run in shared memory; the slots past the last boundary
+take the last prefix with no search. K4 reads the values entry-major, (Np,
+rows) with each entry's rows contiguous, the order the backward's
+per-intersection rows have once gathered by expansion position; it stages a
+run of Gaussians' contiguous span in shared memory and sums each segment in
+one thread (a warp for long segments).
 """
 
 from __future__ import annotations
@@ -84,15 +85,13 @@ def segment_broadcast(
     b: torch.Tensor, ds: Sequence[torch.Tensor], length: int
 ) -> List[torch.Tensor]:
     """``out_c[j] = sum_{i: b[i] <= j} ds[c][i]`` (mod 2**32) for j in
-    [0, length): kernel K3 on CUDA tensors, the plain twin on CPU tensors.
+    [0, length) with kernel K3 (CUDA tensors only; the twin is ``*_plain``).
 
     ``b`` must be sorted nondecreasing and >= 0; entries past ``length``
     never contribute. Returns one (length,) int32 tensor per column."""
     _check(b, ds, length)
-    if b.device.type == "cpu":
-        return segment_broadcast_plain(b, ds, length)
     if b.device.type != "cuda":
-        raise ValueError(f"segment_broadcast: unsupported device {b.device}")
+        raise ValueError(f"segment_broadcast: takes CUDA tensors, got {b.device}")
     n = b.shape[0]
     # inclusive prefixes outside the kernel, as the TPU wrapper does
     prefix = torch.stack(
@@ -148,8 +147,8 @@ def segment_sum_sorted_plain(vals_t: torch.Tensor, hi: torch.Tensor) -> torch.Te
 
 
 def segment_sum_sorted(vals_t: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """``out[c, g] = sum_{hi[g-1] <= j < hi[g]} vals_t[c, j]`` (hi[-1] = 0):
-    kernel K4 on CUDA tensors, the plain twin on CPU tensors.
+    """``out[c, g] = sum_{hi[g-1] <= j < hi[g]} vals_t[c, j]`` (hi[-1] = 0)
+    with kernel K4 (CUDA tensors only; the twin is ``*_plain``).
 
     ``vals_t`` (rows, Np) float32, in any layout; the kernel reads it
     entry-major, so ``x.t()`` of a contiguous (Np, rows) ``x`` costs no
@@ -157,10 +156,9 @@ def segment_sum_sorted(vals_t: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     (rows, N) float32, zero for empty segments; the kernel sums in a fixed
     order, so its result is the same on every run."""
     _check_sum(vals_t, hi)
-    if vals_t.device.type == "cpu":
-        return segment_sum_sorted_plain(vals_t, hi)
     if vals_t.device.type != "cuda":
-        raise ValueError(f"segment_sum_sorted: unsupported device {vals_t.device}")
+        raise ValueError(f"segment_sum_sorted: takes CUDA tensors, "
+                         f"got {vals_t.device}")
     rows, npv = vals_t.shape
     n = hi.shape[0]
     # the kernel reads entry-major values, (Np, rows) contiguous: the

@@ -3,9 +3,10 @@
 
 The Gaussian set and the sorted intersection list are replicated while the
 tile grid is split into contiguous ranges, one a rank: each rank composites
-its range with kernel K1, and one gather of the per-tile outputs assembles
-the image. Projection, footprints and binning (K3) run on every rank; they
-are a small part of a large render. Forward only, as in gstk_tpu: training
+its range with kernel K1 (or its twin: :func:`gstk_torch._build.takes_kernels`),
+and one gather of the per-tile outputs assembles the image. Projection,
+footprints and binning (K3) run on every rank; they are a small part of a
+large render. Forward only, as in gstk_tpu: training
 shards over cameras instead.
 
 K1 runs unchanged on tile ranges in which every tile outside this rank's
@@ -18,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from gstk_torch._build import takes_kernels
 from gstk_torch.ops.binning import bin_gaussians
 from gstk_torch.ops.raster_cuda import composite_tiles_fwd, composite_tiles_fwd_plain
 from gstk_torch.ops.rasterize import (
@@ -79,11 +81,11 @@ def rasterize_tile_sharded(
     bins[hi:] = 0
     args = (xys, conics, opacities, colors, isect.gaussian_ids, bins,
             tile_bounds, bw)
-    if config.backend == "plain":
+    if takes_kernels(xys.device, config.backend):
+        acc, final_t = composite_tiles_fwd(*args)
+    else:
         acc, final_t, _ = composite_tiles_fwd_plain(*args,
                                                     chunk=config.chunk_size)
-    else:
-        acc, final_t = composite_tiles_fwd(*args)
     ch = colors.shape[-1]
     local = torch.cat([acc[lo:hi], final_t[lo:hi, :, None]], dim=-1)
     pad = local.new_zeros((per - (hi - lo),) + local.shape[1:])

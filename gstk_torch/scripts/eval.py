@@ -18,6 +18,7 @@ where torchvision or its weights are absent, LPIPS is reported as null.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -119,10 +120,12 @@ def main(argv=None) -> dict:
 
     config = load_config(args.load_config)
     run_dir = args.load_config.parent
-    # the trainer's fixed eval background, so gs-eval reproduces the
-    # trainer's eval numbers
+    # the trainer's fixed eval background and compositing chunk (which the
+    # plain twins walk), so gs-eval reproduces the trainer's eval numbers
     renderer = Renderer(run_dir / "ckpts", model_config=config.model,
                         background=EVAL_BACKGROUND, device=args.device)
+    renderer.raster_config = dataclasses.replace(
+        renderer.raster_config, chunk_size=config.raster_chunk)
     dm = FullImageDatamanager(
         config.dataparser, seed=config.seed,
         splits=("train", "eval") if args.split == "train" else ("eval",),

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from gstk_torch import resolve_device
+from gstk_torch._build import takes_kernels
 from gstk_torch.ops.binning import bin_gaussians
 from gstk_torch.ops.projection import project_gaussians
 from gstk_torch.ops.raster_cuda import (
@@ -95,15 +96,19 @@ def kernel_inputs(arrays: Dict[str, np.ndarray], res: int,
 
 def run_kernels(inputs: Dict) -> Dict:
     """K1 and K2 through their wrappers and their plain twins at
-    ``inputs``: the outputs, errors, pairs and each kernel's work."""
+    ``inputs``: the outputs, errors, pairs and each kernel's work (on CPU
+    tensors the twins' outputs stand in for the kernels')."""
     args, rec = inputs["args"], inputs["records"]
     tiles = args[6]
-    acc, final_t = composite_tiles_fwd(*args, records=rec)
+    kernels = takes_kernels(args[0].device, "auto")
     acc_p, final_t_p, visited = composite_tiles_fwd_plain(*args)
+    acc, final_t = (composite_tiles_fwd(*args, records=rec) if kernels
+                    else (acc_p, final_t_p))
     cts = (torch.ones_like(acc), torch.ones_like(final_t))
     bwd_args = args[:6] + (acc, final_t) + cts + (tiles,)
-    gout = composite_tiles_bwd(*bwd_args, records=rec)
     gout_p, kept = composite_tiles_bwd_plain(*bwd_args)
+    gout = (composite_tiles_bwd(*bwd_args, records=rec) if kernels
+            else gout_p)
     scale = gout_p.abs().amax(0, keepdim=True)
     ch = args[3].shape[1]
     num_tiles = tiles[0] * tiles[1]

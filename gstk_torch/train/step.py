@@ -17,8 +17,8 @@ adjustment of the step's camera is composed onto it, the L2 pose penalty
 joins the loss, and the adjustments get their own exp-decayed Adam group,
 stepped at the state's step with no update mask.
 
-``micro_batch`` > 1 sums gradients and statistics over that many cameras in
-a Python loop and applies Adam once to the sum.
+One body runs every step; ``micro_batch`` > 1 hands it that many cameras,
+whose gradients and statistics it sums before Adam steps once on the sum.
 
 With ``axis_name`` (``"data"``) the step is one rank's share of a
 data-parallel step over the mesh's axis of that name
@@ -346,6 +346,53 @@ def make_train_step(
                     torch.linalg.norm(adj[:, 3:], dim=-1))
         return metrics
 
+    def step(state, views):
+        """The step over ``views``, each camera's arguments of grads_once:
+        later cameras add to the first's gradients and statistics (radii and
+        intersection counts maxed, metrics averaged), then one update."""
+        with timer("step"):
+            num_alive = state.scene.num_alive
+            g_xys, radii = [], []
+            for i, view in enumerate(views):
+                grads, g_x, cam_g, rep, r, m = grads_once(state, *view)
+                g_xys.append(g_x)
+                radii.append(r)
+                if i == 0:
+                    gsum, csum, rsum, metrics = grads, cam_g, rep, m
+                    continue
+                gsum = {k: gsum[k] + v for k, v in grads.items()}
+                if csum is not None:
+                    csum = csum + cam_g
+                if rsum is not None:
+                    rsum = rsum + rep
+                metrics = {k: torch.maximum(v, m[k]) if k == "num_intersects"
+                           else v + m[k] for k, v in metrics.items()}
+            if len(g_xys) > 1:
+                metrics = {k: v if k == "num_intersects" else v / len(g_xys)
+                           for k, v in metrics.items()}
+            metrics["num_alive"] = num_alive
+            with timer("update"):
+                g_norm, visible, peak = (_lane_norm(g_xys[0]), radii[0] > 0,
+                                         radii[0])
+                for g_x, r in zip(g_xys[1:], radii[1:]):
+                    g_norm = g_norm + _lane_norm(g_x)
+                    visible = visible.to(torch.int32) + (r > 0)
+                    peak = torch.maximum(peak, r)
+                gsum, csum, g_norm, visible, peak, metrics = synchronize(
+                    gsum, csum, rsum, g_norm, visible, peak, metrics)
+                refine = RefineState(
+                    xys_grad_norm=state.refine.xys_grad_norm + g_norm,
+                    vis_counts=state.refine.vis_counts
+                    + visible.to(torch.float32),
+                    max_2dsize=torch.maximum(
+                        state.refine.max_2dsize,
+                        peak.to(torch.float32) / max_img_size,
+                    ),
+                )
+                state = apply(state, gsum, csum, refine)
+                metrics = camera_metrics(state, metrics)
+            return state, metrics
+
     def train_step(state: TrainState, camera: Camera, gt_image: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    mask: Optional[torch.Tensor] = None,
@@ -353,29 +400,8 @@ def make_train_step(
                    mono_scale: Optional[torch.Tensor] = None,
                    mono_shift: Optional[torch.Tensor] = None,
                    camera_index=None):
-        with timer("step"):
-            num_alive = state.scene.num_alive
-            grads, g_xys, cam_grad, cam_rep, radii, metrics = grads_once(
-                state, camera, gt_image, generator, mask, depth, mono_scale,
-                mono_shift, camera_index,
-            )
-            metrics["num_alive"] = num_alive
-            with timer("update"):
-                grads, cam_grad, g_norm, visible, radii, metrics = synchronize(
-                    grads, cam_grad, cam_rep, _lane_norm(g_xys), radii > 0,
-                    radii, metrics)
-                refine = RefineState(
-                    xys_grad_norm=state.refine.xys_grad_norm + g_norm,
-                    vis_counts=state.refine.vis_counts
-                    + visible.to(torch.float32),
-                    max_2dsize=torch.maximum(
-                        state.refine.max_2dsize,
-                        radii.to(torch.float32) / max_img_size,
-                    ),
-                )
-                state = apply(state, grads, cam_grad, refine)
-                metrics = camera_metrics(state, metrics)
-            return state, metrics
+        return step(state, [(camera, gt_image, generator, mask, depth,
+                             mono_scale, mono_shift, camera_index)])
 
     if micro_batch == 1:
         return train_step
@@ -388,48 +414,11 @@ def make_train_step(
                          mono_scales: Optional[torch.Tensor] = None,
                          mono_shifts: Optional[torch.Tensor] = None,
                          camera_indices=None):
-        with timer("step"):
-            num_alive = state.scene.num_alive
-            capacity = state.scene.capacity
-            zeros = lambda dtype: torch.zeros(capacity, dtype=dtype,
-                                              device=state.scene.means.device)
-            gsum, csum, rsum, ys = None, None, None, []
-            gx_sum = zeros(torch.float32)
-            vis_sum, rad_max = zeros(torch.int32), zeros(torch.int32)
-            at = lambda xs, i: None if xs is None else xs[i]
-            for i in range(micro_batch):
-                grads, g_xys, cam_grad, cam_rep, radii, m = grads_once(
-                    state, _camera_at(cameras, i), gt_images[i], generator,
-                    at(masks, i), at(depths, i), at(mono_scales, i),
-                    at(mono_shifts, i), at(camera_indices, i),
-                )
-                gsum = grads if gsum is None else {k: gsum[k] + v
-                                                   for k, v in grads.items()}
-                if use_cam_opt:
-                    csum = cam_grad if csum is None else csum + cam_grad
-                if cam_rep is not None:
-                    rsum = cam_rep if rsum is None else rsum + cam_rep
-                gx_sum = gx_sum + _lane_norm(g_xys)
-                vis_sum = vis_sum + (radii > 0).to(torch.int32)
-                rad_max = torch.maximum(rad_max, radii.to(torch.int32))
-                ys.append(m)
-            stacked = {k: torch.stack([m[k] for m in ys]) for k in ys[0]}
-            metrics = {k: v.mean() for k, v in stacked.items()
-                       if k != "num_intersects"}
-            metrics["num_alive"] = num_alive
-            metrics["num_intersects"] = stacked["num_intersects"].max()
-            with timer("update"):
-                gsum, csum, gx_sum, vis_sum, rad_max, metrics = synchronize(
-                    gsum, csum, rsum, gx_sum, vis_sum, rad_max, metrics)
-                refine = RefineState(
-                    xys_grad_norm=state.refine.xys_grad_norm + gx_sum,
-                    vis_counts=state.refine.vis_counts + vis_sum.to(torch.float32),
-                    max_2dsize=torch.maximum(
-                        state.refine.max_2dsize,
-                        rad_max.to(torch.float32) / max_img_size),
-                )
-                state = apply(state, gsum, csum, refine)
-                metrics = camera_metrics(state, metrics)
-            return state, metrics
+        at = lambda xs, i: None if xs is None else xs[i]
+        return step(state, (
+            (_camera_at(cameras, i), gt_images[i], generator, at(masks, i),
+             at(depths, i), at(mono_scales, i), at(mono_shifts, i),
+             at(camera_indices, i))
+            for i in range(micro_batch)))
 
     return micro_train_step

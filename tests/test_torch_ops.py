@@ -24,6 +24,7 @@ from gstk_tpu.ops.segment_kernel import segment_broadcast as jax_segment_broadca
 from gstk_tpu.utils import math as jmath
 from gstk_torch.core import cameras as tcam
 from gstk_torch.ops import projection as tproj
+from gstk_torch.ops import raster_cuda, segment_kernel
 from gstk_torch.ops import sh as tsh
 from gstk_torch.ops.segment_kernel import segment_broadcast, segment_broadcast_plain
 from gstk_torch.utils import math as tmath
@@ -181,13 +182,41 @@ def test_segment_broadcast_plain_matches_jax(rng, case):
         jnp.asarray(b), [jnp.asarray(d) for d in ds], length, interpret=True
     )
     got = segment_broadcast_plain(_t(b), [_t(d) for d in ds], length)
-    before = segment_broadcast.launches
-    via_wrapper = segment_broadcast(_t(b), [_t(d) for d in ds], length)
-    for g, w, r in zip(got, via_wrapper, ref):
+    for g, r in zip(got, ref):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(_np(g), np.asarray(r))
-        np.testing.assert_array_equal(_np(w), np.asarray(r))
-    assert segment_broadcast.launches == before  # CPU tensors: no kernel
+
+
+def _wrapper_call(kernel):
+    """A K1-K4 wrapper and valid CPU arguments for it."""
+    n, tiles = 8, (1, 1)
+    xys = torch.full((n, 2), 8.0)
+    conics = torch.tensor([[0.05, 0.0, 0.05]]).repeat(n, 1)
+    attrs = (xys, conics, torch.full((n,), 0.5), torch.rand(n, 3))
+    gids = torch.arange(n, dtype=torch.int32)
+    bins = torch.tensor([[0, n]], dtype=torch.int32)
+    planes = (torch.zeros(1, 256, 3), torch.ones(1, 256),
+              torch.ones(1, 256, 3), torch.zeros(1, 256))
+    hi = torch.arange(1, n + 1, dtype=torch.int32)
+    return {
+        "k1": (raster_cuda.composite_tiles_fwd, (*attrs, gids, bins, tiles)),
+        "k2": (raster_cuda.composite_tiles_bwd,
+               (*attrs, gids, bins, *planes, tiles)),
+        "k3": (segment_broadcast, (hi, [torch.ones(n, dtype=torch.int32)], n)),
+        "k4": (segment_kernel.segment_sum_sorted, (torch.rand(9, n), hi)),
+    }[kernel]
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+def test_wrappers_take_cuda_tensors_only(kernel):
+    """K1-K4's wrappers only launch: on CPU tensors each raises before it
+    counts a launch (the op that owns a kernel and its twin chooses,
+    ``_build.takes_kernels``)."""
+    wrapper, args = _wrapper_call(kernel)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        wrapper(*args)
+    assert wrapper.launches == before
 
 
 def test_port_imports_no_jax():

@@ -22,6 +22,7 @@ from gstk_torch.core import gaussians as tgs
 from gstk_torch.core.scene_box import SceneBox
 from gstk_torch.models import vanilla as tvan
 from gstk_torch.ops import project_cuda
+from gstk_torch.ops.rasterize import RasterizeConfig, rasterize
 
 torch.set_num_threads(2)
 
@@ -55,11 +56,20 @@ def _camera(requires_grad=False):
 
 
 @pytest.mark.parametrize("case", ["cpu", "cuda", "cpu_plain", "cuda_plain",
-                                  "unknown"])
+                                  "unknown", "unknown_rasterize"])
 def test_dispatch_rule(case):
     """The rasterizer's backend rule: ``"auto"`` takes the kernels for CUDA
     tensors, ``"plain"`` keeps the plain path on any device, another name
-    is refused."""
+    is refused, also where it comes through ``RasterizeConfig.backend``."""
+    if case == "unknown_rasterize":
+        n = 4
+        ones = lambda *s: torch.ones(s)
+        counts = torch.ones(n, dtype=torch.int32)
+        with pytest.raises(ValueError, match="fused"):
+            rasterize(ones(n, 2), ones(n), counts, ones(n, 3), counts,
+                      ones(n, 3), ones(n), 16, 16,
+                      config=RasterizeConfig(backend="fused"))
+        return
     device = torch.device(case.split("_")[0] if case != "unknown" else "cuda")
     backend = {"unknown": "fused"}.get(
         case, "plain" if case.endswith("_plain") else "auto")

@@ -116,6 +116,35 @@ def test_rasterize_grads_match_jax_pallas_interpret(rng, opaque):
             segment_kernel.segment_sum_sorted.launches) == launches
 
 
+def test_chunk_size_reaches_the_twins_on_cpu(rng, monkeypatch):
+    """Under the default ``"auto"`` backend, CPU tensors take the twins of
+    K1 and K2, and both walk ``RasterizeConfig.chunk_size`` entries a
+    step."""
+    h, w = 48, 64
+    proj, colors, opac = _scene(rng, 120, w, h)
+    chunks = []
+
+    def spy(twin):
+        def run(*args, chunk):
+            chunks.append((twin.__name__, chunk))
+            return twin(*args, chunk=chunk)
+        return run
+
+    for name in ("composite_tiles_fwd_plain", "composite_tiles_bwd_plain"):
+        monkeypatch.setattr(tras, name, spy(getattr(raster_cuda, name)))
+    xys = torch.tensor(proj["xys"], requires_grad=True)
+    img, _ = tras.rasterize(
+        xys, torch.from_numpy(proj["depths"]), torch.from_numpy(proj["radii"]),
+        torch.from_numpy(proj["conics"]),
+        torch.from_numpy(proj["num_tiles_hit"]), torch.from_numpy(colors),
+        torch.from_numpy(opac), h, w,
+        config=tras.RasterizeConfig(isect_capacity=1 << 13, chunk_size=16),
+    )
+    torch.autograd.grad(img.sum(), xys)
+    assert chunks == [("composite_tiles_fwd_plain", 16),
+                      ("composite_tiles_bwd_plain", 16)]
+
+
 @pytest.mark.parametrize("bands", [1, 2])
 def test_rasterize_grads_match_jax_on_parity_scene(bands):
     """gstk_tpu/utils/parity.py's scene (2000 Gaussians, 96x128, seed 0)

@@ -4,14 +4,19 @@ reads it) and how the compositing wrappers take it.
 
 The kernels themselves run only on the card (``tests/test_torch_gpu.py``);
 here the record's layout is held against the four arrays it packs, the
-wrappers' check of a record passed in, and the CPU path, which ignores it.
+wrappers' check of a record passed in, and the CPU path, which packs none.
 """
+
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from gstk_torch.ops import raster_cuda
+
+# ops/__init__ re-exports the rasterize function under the module's name
+tras = importlib.import_module("gstk_torch.ops.rasterize")
 
 
 def _arrays(rng, n, ch):
@@ -63,9 +68,10 @@ def test_kernel_records_checked_or_built(rng):
 
 
 @pytest.mark.parametrize("ch", [3, 4])
-def test_wrappers_ignore_records_on_cpu(rng, ch):
-    """On CPU tensors both wrappers run their twins and launch nothing,
-    with or without the record."""
+def test_wrappers_ignore_records_on_cpu(rng, ch, monkeypatch):
+    """On CPU tensors the rasterizer takes the twins and packs no record,
+    forward and backward; both wrappers refuse CPU tensors, with or
+    without the record, before they count a launch."""
     n, tiles = 40, (2, 1)
     xys = torch.from_numpy(rng.uniform(0, 32, (n, 2)).astype(np.float32))
     xys[:, 1] = xys[:, 1] / 2
@@ -78,15 +84,27 @@ def test_wrappers_ignore_records_on_cpu(rng, ch):
     rec = raster_cuda.pack_records(xys, conics, opacities, colors)
     launches = (raster_cuda.composite_tiles_fwd.launches,
                 raster_cuda.composite_tiles_bwd.launches)
-    acc, final_t = raster_cuda.composite_tiles_fwd(*args, records=rec)
-    acc_p, final_t_p, _ = raster_cuda.composite_tiles_fwd_plain(*args)
-    assert torch.equal(acc, acc_p) and torch.equal(final_t, final_t_p)
+    acc, final_t, _ = raster_cuda.composite_tiles_fwd_plain(*args)
     assert float(final_t.mean()) < 0.99
     planes = (acc, final_t, torch.ones_like(acc), torch.ones_like(final_t))
-    gout = raster_cuda.composite_tiles_bwd(*args[:6], *planes, tiles,
-                                           records=rec)
-    gout_p, _ = raster_cuda.composite_tiles_bwd_plain(*args[:6], *planes,
-                                                      tiles)
-    assert torch.equal(gout, gout_p) and gout.abs().sum() > 0
+    for records in (rec, None):
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            raster_cuda.composite_tiles_fwd(*args, records=records)
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            raster_cuda.composite_tiles_bwd(*args[:6], *planes, tiles,
+                                            records=records)
     assert (raster_cuda.composite_tiles_fwd.launches,
             raster_cuda.composite_tiles_bwd.launches) == launches
+
+    def no_record(*_):
+        raise AssertionError("a record packed for the twins")
+
+    monkeypatch.setattr(tras, "pack_records", no_record)
+    colors_g = colors.clone().requires_grad_()
+    radii = torch.full((n,), 6, dtype=torch.int32)
+    img, _ = tras.rasterize(
+        xys, torch.ones(n), radii, conics, torch.ones(n, dtype=torch.int32),
+        colors_g, opacities, 16, 32,
+        config=tras.RasterizeConfig(isect_capacity=1 << 10))
+    grad, = torch.autograd.grad(img.sum(), colors_g)
+    assert float(img.detach().abs().sum()) > 0 and float(grad.abs().sum()) > 0
